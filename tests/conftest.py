@@ -17,6 +17,8 @@ except ModuleNotFoundError:
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips when torch sees no card")
 
 
 @pytest.fixture
