@@ -3,20 +3,33 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (``repro_torch``, never ``repro`` or JAX) at a
-real size: bulk load of 1,000,000 synthetic URLs on the card, then batched
-point lookups of 65,536 queries.  It builds every CUDA kernel from
-``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
-version on the same inputs (exact equality), checks that the main path went
-through the kernels, that the card-built and CPU-built pools are equal, and
-that every lookup answers right, then times each kernel.  It exits non-zero
-on any failure, and when there is no CUDA device.
+Drives the port's paths (``repro_torch``, never ``repro`` or JAX) at a real
+size on one 1,000,000-key synthetic URL index:
+
+* the lookup path: bulk load on the card, then batched point lookups of
+  65,536 queries;
+* the range path: ``scan_batch`` (window 16) and ``rank_batch`` over 16
+  batches of 65,536 start keys, with an empty delta and again with the live
+  delta the write path leaves;
+* the write path: four ``put_batch``/``delete_batch`` rounds of 1,024 ops,
+  replayed on a CPU copy of the index;
+* ``ops.hpt_cdf(variant="onehot")``, the one-hot GetCDF.
+
+It builds every CUDA kernel from ``src/repro_torch/kernels/csrc``, holds
+each against its plain PyTorch version on the same inputs (exact equality),
+checks that each path went through its kernels (launch counts set to 0
+before the path and read after it), that the card-built and CPU-built pools
+are equal and that the card's writes equal the CPU's, and that every lookup
+and every scan window answers a host-side oracle; then it times each kernel.
+It exits non-zero on any failure, and when there is no CUDA device.
 
 Output: one line per phase, then a JSON line of per-kernel numbers, then
 the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import bisect
+import dataclasses
 import json
 import os
 import subprocess
@@ -29,7 +42,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_KEYS = 1_000_000          # stored keys (url)
 N_EXTRA = 250_000           # never-stored keys from the same generator
-BATCH = 65_536              # queries per get_batch
+BATCH = 65_536              # queries per get_batch / scan_batch
+N_SCAN_BATCHES = 16         # scan_batch and rank_batch batches per range pass
+WINDOW = 16                 # the reference's scan_window
+WRITE_BATCH = 1_024         # ops per put_batch / delete_batch
 N_SUBSET = 100_000          # keys of the cuda-vs-cpu structure check
 SEED = 0
 DEVICE = "cuda"
@@ -46,6 +62,10 @@ KERNELS = {
                     "src/repro/kernels/cnode_probe.py:22"),
     "fused_search": ("src/repro_torch/kernels/csrc/traverse.cu",
                      "src/repro/kernels/traverse.py:44"),
+    "rank": ("src/repro_torch/kernels/csrc/rank.cu", "src/repro/kernels/rank.py:34"),
+    "scan": ("src/repro_torch/kernels/csrc/scan.cu", "src/repro/kernels/scan.py:35"),
+    "hpt_cdf_onehot": ("src/repro_torch/kernels/csrc/hpt_cdf_onehot.cu",
+                       "src/repro/kernels/hpt_cdf.py:68"),
 }
 
 
@@ -55,6 +75,11 @@ def say(*parts) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
 
 
 def time_cuda(fn, reps: int, warmup: int = 2) -> float:
@@ -83,6 +108,154 @@ def max_abs_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
+def join_values(lo, hi) -> np.ndarray:
+    return (np.asarray(hi, np.int64) << 32) | np.asarray(lo, np.int32).view(np.uint32)
+
+
+class PoolReads:
+    """The least bytes that searches must read from one sorted order and its
+    pools, tallied from the plain version's trace: each entry's order word
+    once, its (off, len) record once where its key is compared, its key up to
+    the byte that decides its deepest compare, and its tombstone flag once
+    where a merge takes it."""
+
+    def __init__(self, srt, off, ln, pool):
+        self.srt, self.off, self.ln, self.pool = srt, off, ln, pool
+        n, dev = off.shape[0], off.device
+        self.word = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.rec = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.flag = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.key = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    def rows(self, e, width):
+        """(B, width) key bytes of entries ``e``, masked past their lengths."""
+        from repro_torch.kernels.strops import gather_bytes, take
+
+        ln = take(self.ln, e)
+        cols = torch.arange(width, device=e.device)[None, :]
+        return torch.where(cols < ln[:, None],
+                           gather_bytes(self.pool, take(self.off, e), width).int(), 0), ln
+
+    def read(self, e, m, key_bytes=None, flag=False):
+        e = e[m].long()
+        self.word[e] = True
+        if flag:
+            self.flag[e] = True
+        if key_bytes is not None:
+            self.rec[e] = True
+            self.key.scatter_reduce_(0, e, key_bytes[m].long(), "amax")
+
+    def ranked(self, qb, ql, steps):
+        """Tally a ``rank_sorted`` trace of queries (qb, ql)."""
+        for e, m in steps:
+            kv, kl = self.rows(e, qb.shape[1])
+            self.read(e, m, decided_at(qb.int(), kv, ql, kl)[1])
+
+    def total(self) -> int:
+        return int(4 * self.word.sum() + 8 * self.rec.sum() + self.flag.sum() + self.key.sum())
+
+
+def decided_at(va, vb, la, lb):
+    """Bytes of each side that a compare of masked rows ``va``, ``vb`` must
+    read: up to and including the first differing byte, at most its length."""
+    neq = va != vb
+    d = torch.where(neq.any(dim=1), neq.int().argmax(dim=1), va.shape[1])
+    return torch.minimum(la.long(), d + 1), torch.minimum(lb.long(), d + 1)
+
+
+class Oracle:
+    """The live key set in Python ``bytes`` order, and per entry its rank there."""
+
+    def __init__(self, live: dict, ti):
+        self.keys = sorted(live)
+        self.vals = np.array([live[k] for k in self.keys], np.int64)
+        pos = {k: i for i, k in enumerate(self.keys)}
+        pool = ti.key_bytes.cpu().numpy()
+        off, ln = ti.ent_off.cpu().numpy(), ti.ent_len.cpu().numpy()
+        self.base_pos = np.full(off.shape[0], -1, np.int64)
+        for e in ti.ent_sorted.cpu().numpy().tolist():
+            self.base_pos[e] = pos.get(pool[off[e]: off[e] + ln[e]].tobytes(), -1)
+        dpool = ti.db_bytes.cpu().numpy()
+        doff, dln = ti.de_off.cpu().numpy(), ti.de_len.cpu().numpy()
+        self.delta_pos = np.full(doff.shape[0], -1, np.int64)
+        for d in range(int(ti.de_count)):
+            self.delta_pos[d] = pos.get(dpool[doff[d]: doff[d] + dln[d]].tobytes(), -1)
+
+    def bad_windows(self, starts, eids, valid, isd, lo, hi) -> int:
+        """Rows whose window is not the next live keys >= the start, with
+        their values."""
+        lb = np.array([bisect.bisect_left(self.keys, s) for s in starts], np.int64)
+        want = lb[:, None] + np.arange(eids.shape[1])[None, :]
+        want_ok = want < len(self.keys)
+        e = np.maximum(eids, 0)
+        got = np.where(isd, self.delta_pos[np.minimum(e, self.delta_pos.shape[0] - 1)],
+                       self.base_pos[np.minimum(e, self.base_pos.shape[0] - 1)])
+        vals = join_values(lo, hi)
+        want_v = self.vals[np.minimum(want, len(self.keys) - 1)] if self.keys else vals
+        row_ok = ((valid == want_ok) & (~valid | ((got == want) & (vals == want_v)))).all(axis=1)
+        return int((~row_ok).sum())
+
+
+def range_pass(index, batches, oracle, label, with_rank):
+    """scan_batch (and rank_batch) over every batch, then each window against
+    the oracle.  Returns (launches, scans/s, ranks of the first batch)."""
+    from repro_torch.core.tensor_index import lookup_values, rank_batch
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    sync()
+    t = time.time()
+    outs = []
+    for starts in batches:
+        eids, valid, isd = index.scan_batch(starts, WINDOW)
+        outs.append((eids, valid, isd, *lookup_values(index.ti, eids, isd)))
+    sync()
+    scan_s = time.time() - t
+    ranks = []
+    if with_rank:
+        for starts in batches:
+            ranks.append(rank_batch(index.ti, *index._queries(starts)))
+        sync()
+    launches = dict(_build.LAUNCHES)
+    n = sum(len(s) for s in batches)
+    bad = sum(oracle.bad_windows(s, *(x.cpu().numpy() for x in o))
+              for s, o in zip(batches, outs))
+    say(f"phase range ({label}): scan_batch of {n} starts in {len(batches)} batches, "
+        f"window {WINDOW}: {scan_s:.2f} s = {n / scan_s:.0f} scans/s; windows differing "
+        f"from the oracle {bad}; launches rank {launches['rank']} scan {launches['scan']}")
+    if bad:
+        fail(f"{bad} scan windows ({label}) differ from the oracle")
+    if launches["scan"] == 0 or (with_rank and launches["rank"] == 0):
+        fail(f"the range path ({label}) never launched its kernels: {launches}")
+    return launches, n / scan_s, ranks[0] if ranks else None
+
+
+def write_rounds(rng, keys, absent, found_keys, missed, key0, W):
+    """Four rounds of WRITE_BATCH ops: puts of never-stored keys, value
+    updates, deletes of stored and of delta-only keys, re-puts of deleted
+    keys, over-width keys and duplicates; the first round puts entry 0's key
+    ahead of other ops, the third puts it last."""
+    base = [k for k in (keys[i] for i in rng.permutation(len(keys))) if k in found_keys
+            and k != key0]
+    p = rng.permutation(len(absent))
+    new = [absent[i] for i in p[:1200]]
+    never = [absent[i] for i in p[1200:1600]]
+    over = [k + b"/" * (W + 1 - len(k) + j % 7) for j, k in enumerate(base[-64:])]
+    miss = sorted(missed)[:64]
+    n = WRITE_BATCH
+    r1 = [key0] + new[:511] + base[:256] + miss + over + new[:64] + new[511:575]
+    r1 += new[959: 959 + n - len(r1)]            # where fewer than 64 keys were missed
+    r2 = base[256:768] + new[:256] + never[:128] + over + base[256:320]
+    r3 = base[256:512] + new[:128] + new[575:959] + base[768:960] + over[:63] + [key0]
+    r4 = base[256:512] + new[575:831] + base[960:1216] + never[128:384]
+    rounds = [("put", r1), ("delete", r2), ("put", r3), ("delete", r4)]
+    for kind, ops in rounds:
+        if len(ops) != n:
+            fail(f"a {kind} round has {len(ops)} ops, not {n}")
+    return [(kind, ops, rng.integers(-(1 << 62), 1 << 62, n) if kind == "put" else None)
+            for kind, ops in rounds]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -92,9 +265,11 @@ def main() -> int:
     from repro_torch.core.strings import StringSet
     from repro_torch.core.tensor_index import (
         DATA_FIELDS, _delta_lookup, freeze, lookup_values, pad_queries)
+    from repro_torch.core.walk import delta_rank_iters
     from repro_torch.data import synthetic
     from repro_torch.index import IndexConfig, StringIndex
-    from repro_torch.kernels import _build, cnode_probe, hpt_cdf, hpt_locate, traverse
+    from repro_torch.kernels import (
+        _build, cnode_probe, hpt_cdf, hpt_locate, ops, rank, scan, traverse)
     from repro_torch.kernels.strops import hash16
 
     t_all = time.time()
@@ -124,39 +299,44 @@ def main() -> int:
     say(f"phase data: url {len(keys)} stored + {len(absent)} never stored keys "
         f"in {time.time() - t:.1f} s")
 
-    # 4. main path: bulk load, then get_batch; launch counts around it
+    # 4. lookup path: bulk load, then get_batch; launch counts around it
     stored = set(keys)
     _build.reset_launches()
-    torch.cuda.synchronize()
+    sync()
     t = time.time()
     index = StringIndex.bulk_load(keys, values, IndexConfig(device=DEVICE))
-    torch.cuda.synchronize()
+    sync()
     build_s = time.time() - t
     ti = index.ti
     W = ti.width
     order = rng.permutation(N_KEYS)
     n_stored, n_absent = BATCH // 2, BATCH // 4
     n_prefix = BATCH - n_stored - n_absent
-    batches, answers = [], []
-    for b in range(0, N_KEYS, n_stored):
+
+    def mixed_batch(b):
+        """Half stored keys, a quarter never stored, a quarter prefixes and
+        over-width keys."""
         q = [keys[i] for i in order[b: b + n_stored]]
         q += [absent[(b // 2 + j) % len(absent)] for j in range(n_absent)]
         src = [keys[i] for i in rng.integers(0, N_KEYS, n_prefix)]
         q += [k[: max(1, len(k) // 2)] for k in src[: n_prefix // 2]]
         q += [k + b"/" * (W + 1 - len(k) + j % 7) for j, k in enumerate(src[n_prefix // 2:])]
-        batches.append(q)
+        return q
+
+    batches = [mixed_batch(b) for b in range(0, N_KEYS, n_stored)]
+    answers = []
     t = time.time()
     for q in batches:
         answers.append(index.get_batch(q))
-    torch.cuda.synchronize()
+    sync()
     get_s = time.time() - t
     main_launches = dict(_build.LAUNCHES)
     n_lookups = sum(len(q) for q in batches)
     pool_bytes = ti.nbytes()
     say(f"phase main: bulk_load {build_s:.2f} s, width {W}, max_iters {ti.max_iters}, "
-        f"cdf_steps {ti.cdf_steps}, pools {pool_bytes} bytes; get_batch {n_lookups} lookups "
-        f"in {len(batches)} batches of {BATCH}: {get_s:.2f} s = "
-        f"{n_lookups / get_s:.0f} lookups/s; launches {main_launches}")
+        f"cdf_steps {ti.cdf_steps}, rank_iters {ti.rank_iters}, pools {pool_bytes} bytes; "
+        f"get_batch {n_lookups} lookups in {len(batches)} batches of {BATCH}: {get_s:.2f} s "
+        f"= {n_lookups / get_s:.0f} lookups/s; launches {main_launches}")
     for name in ("hpt_cdf", "hpt_locate", "fused_search"):
         if main_launches[name] == 0:
             fail(f"the main path never launched {name}")
@@ -175,27 +355,143 @@ def main() -> int:
                 false_hits += 1
     # stored keys the bulk load left unreachable: the reference's build loses
     # the same ones (float32 positions that step back in a model node)
-    say(f"stored_keys_missed={len(missed)} (of {N_KEYS})")
+    say(f"stored_keys_missed={len(missed)} (of {N_KEYS}); scans still show them")
     say(f"phase truth: wrong values {wrong}, hits on keys never stored {false_hits}")
     if wrong or false_hits:
         fail("lookups answered wrong")
+    del answers
 
-    # 6. each kernel against its plain version at main-path shapes
+    # 6. range path, empty delta: scan_batch + rank_batch against the oracle.
+    # The lost keys stay in the frozen sorted order (the reference's too), so
+    # scans show them though gets miss them, until a write reaches them.
+    live = {k: v for k, v in val_of.items() if k not in missed}
+
+    def scan_view(written=()):
+        view = dict(live)
+        view.update((k, val_of[k]) for k in missed if k not in written)
+        return view
+
+    scan_batches = batches[:N_SCAN_BATCHES]
+    range_launches, scans_empty, ranks0 = range_pass(
+        index, scan_batches, Oracle(scan_view(), ti), "empty delta", with_rank=True)
+    first = scan_batches[0]
+    live_sorted = sorted(scan_view())
+    want_rank = np.array([bisect.bisect_left(live_sorted, s) for s in first[::32]], np.int32)
+    del live_sorted
+    ti0 = index.ti                       # the index before any write
+
+    # 7. write path: four rounds, each answer against the oracle's masks;
+    #    the same ops replayed on a CPU copy; gets of every touched key
+    key0 = index._builder.key_at(0)
+    if key0 in missed:
+        fail("the key of entry 0 is not reachable")
+    found_keys = stored - missed
+    cpu_index = StringIndex(None, dataclasses.replace(
+        ti0, **{f: getattr(ti0, f).cpu() for f in DATA_FIELDS}), IndexConfig(device="cpu"))
+    rounds = write_rounds(np.random.default_rng(SEED + 1), keys, absent, found_keys, missed,
+                          key0, W)
+    base0, lost, bad_masks, write_ms, replay_s = val_of[key0], 0, 0, [], 0.0
+    in_delta = set()
+    _build.reset_launches()
+    for kind, ops_, vals in rounds:
+        sync()
+        t = time.perf_counter()
+        out = (index.put_batch(ops_, vals) if kind == "put" else index.delete_batch(ops_))
+        write_ms.append((kind, (time.perf_counter() - t) * 1e3))
+        t = time.perf_counter()
+        cpu_out = (cpu_index.put_batch(ops_, vals) if kind == "put"
+                   else cpu_index.delete_batch(ops_))
+        replay_s += time.perf_counter() - t
+        for a, b in zip(out, cpu_out):
+            if not np.array_equal(a, b):
+                fail(f"{kind}_batch masks differ between the card and the CPU")
+        diff = [f for f in DATA_FIELDS
+                if not torch.equal(getattr(index.ti, f).cpu(), getattr(cpu_index.ti, f))]
+        if diff:
+            fail(f"{kind}_batch leaves fields differing between the card and the CPU: {diff}")
+        # the oracle, op by op; the reference's base-value scatter lets the
+        # last op of a batch that is not a base put overwrite entry 0's value
+        if kind == "put":
+            last0 = max((i for i, k in enumerate(ops_) if k == key0), default=-1)
+            last_other = max((i for i, k in enumerate(ops_) if k not in found_keys), default=-1)
+            for i, k in enumerate(ops_):
+                fits = len(k) <= W
+                want = (fits and k not in live, fits and k in live)
+                bad_masks += (bool(out[0][i]), bool(out[1][i])) != want
+                if fits:
+                    live[k] = int(vals[i])
+                    if k not in found_keys:
+                        in_delta.add(k)
+            if last0 >= 0:
+                if last_other > last0:
+                    lost += 1
+                else:
+                    base0 = int(vals[last0])
+                if key0 not in in_delta:
+                    live[key0] = base0
+        else:
+            for i, k in enumerate(ops_):
+                fits = len(k) <= W
+                bad_masks += (bool(out[0][i]), bool(out[1][i])) != (fits and k in live, False)
+                if fits and k in live:
+                    live.pop(k)
+                    in_delta.add(k)
+    sync()
+    write_launches = dict(_build.LAUNCHES)
+    touched = sorted({k for _, ops_, _ in rounds for k in ops_})
+    found, vals = index.get_batch(touched)
+    w_wrong = sum(1 for k, f, v in zip(touched, found.tolist(), vals.tolist())
+                  if f != (k in live) or (f and v != live[k]))
+    say("phase write: " + ", ".join(f"{k}_batch {ms:.1f} ms" for k, ms in write_ms)
+        + f" per {WRITE_BATCH} ops; CPU replay {replay_s:.1f} s, every field equal; "
+        f"claimed {int(index.ti.de_count)} of {index.ti.de_off.shape[0]} delta entries, "
+        f"{int(index.ti.db_used)} bytes, overflowed {index.delta_overflowed}; "
+        f"launches fused_search {write_launches['fused_search']}")
+    say(f"base_puts_lost={lost}")
+    say(f"phase write truth: {len(touched)} touched keys, wrong answers {w_wrong}, "
+        f"masks differing from the oracle {bad_masks}")
+    if w_wrong or bad_masks:
+        fail("the write path answered wrong")
+    if write_launches["fused_search"] == 0 or index.delta_overflowed:
+        fail(f"write path: launches {write_launches}, overflow {index.delta_overflowed}")
+
+    # 8. range path, live delta
+    launches_live, scans_live, _ = range_pass(
+        index, scan_batches, Oracle(scan_view(set(touched)), index.ti), "live delta",
+        with_rank=False)
+    range_launches["scan"] += launches_live["scan"]
+    del cpu_index
+
+    # 9. one-hot GetCDF path: ops.hpt_cdf(variant="onehot") launches K7, never K2
     qb_np, ql_np = pad_queries(batches[0], W)
     qb, ql = torch.from_numpy(qb_np).to(dev), torch.from_numpy(ql_np).to(dev)
     B = qb.shape[0]
+    steps = min(64, W)  # the builder's GetCDF walk (MAX_CDF_STEPS)
+    start = torch.from_numpy(rng.integers(0, 8, B).astype(np.int32)).to(dev)
+    _build.reset_launches()
+    onehot_out = ops.hpt_cdf(qb, ql, start, cdf_tab=ti.cdf_tab, prob_tab=ti.prob_tab,
+                             variant="onehot", max_steps=steps)
+    sync()
+    onehot_launches = dict(_build.LAUNCHES)
+    say(f"phase onehot: ops.hpt_cdf(variant='onehot') on {B} rows: launches "
+        f"hpt_cdf_onehot {onehot_launches['hpt_cdf_onehot']} hpt_cdf {onehot_launches['hpt_cdf']}")
+    if onehot_launches["hpt_cdf_onehot"] != 1 or onehot_launches["hpt_cdf"] != 0:
+        fail("variant='onehot' did not go through K7 alone")
+
+    # 10. each kernel against its plain version at its path's shapes
     results, inputs = {}, {}
     got = traverse.fused_search_cuda(ti, qb, ql)
-    want = traverse.fused_search_plain(ti, qb, ql)
-    results["fused_search"] = (got, want)
+    results["fused_search"] = (got, traverse.fused_search_plain(ti, qb, ql))
     inputs["fused_search"] = ((ti, qb, ql), traverse.fused_search_cuda,
                               traverse.fused_search_plain)
 
-    steps = min(64, W)  # the builder's GetCDF walk (MAX_CDF_STEPS)
-    start = torch.from_numpy(rng.integers(0, 8, B).astype(np.int32)).to(dev)
     args = (qb, ql, start, ti.cdf_tab, ti.prob_tab, steps)
     results["hpt_cdf"] = ((hpt_cdf.hpt_cdf_cuda(*args),), (hpt_cdf.hpt_cdf_plain(*args),))
     inputs["hpt_cdf"] = (args, hpt_cdf.hpt_cdf_cuda, hpt_cdf.hpt_cdf_plain)
+    k7 = hpt_cdf.hpt_cdf_onehot_cuda(*args)
+    results["hpt_cdf_onehot"] = ((k7,), (hpt_cdf.hpt_cdf_onehot_plain(*args),))
+    inputs["hpt_cdf_onehot"] = (args, hpt_cdf.hpt_cdf_onehot_cuda, hpt_cdf.hpt_cdf_onehot_plain)
+    results["onehot == gather (K7 vs K2)"] = ((k7, onehot_out), (results["hpt_cdf"][0][0],) * 2)
 
     nid = torch.from_numpy(rng.integers(0, ti.mn_slot_base.shape[0], B)).to(dev)
     args = (qb, ql, start, ti.mn_alpha[nid].contiguous(), ti.mn_beta[nid].contiguous(),
@@ -217,14 +513,27 @@ def main() -> int:
     results["cnode_probe"] = ((cnode_probe.cnode_probe_cuda(*args),),
                               (cnode_probe.cnode_probe_plain(*args),))
     inputs["cnode_probe"] = (args, cnode_probe.cnode_probe_cuda, cnode_probe.cnode_probe_plain)
-    torch.cuda.synchronize()
+
+    sqb, sql = index._queries(first)
+    k5 = rank.fused_rank_cuda(ti0, sqb, sql)
+    rank_trace, scan_trace = [], {}
+    results["rank"] = ((k5,), (rank.fused_rank_plain(ti0, sqb, sql, trace=rank_trace),))
+    results["rank (range path) == bisect"] = (
+        (ranks0[::32].cpu(), k5[::32].cpu()), (torch.from_numpy(want_rank),) * 2)
+    inputs["rank"] = ((ti0, sqb, sql), rank.fused_rank_cuda, rank.fused_rank_plain)
+    for label, t_i, tr in (("scan, empty delta", ti0, None), ("scan", index.ti, scan_trace)):
+        results[label] = (scan.fused_scan_cuda(t_i, sqb, sql, window=WINDOW),
+                          scan.fused_scan_plain(t_i, sqb, sql, window=WINDOW, trace=tr))
+    inputs["scan"] = ((index.ti, sqb, sql), lambda *a: scan.fused_scan_cuda(*a, window=WINDOW),
+                      lambda *a: scan.fused_scan_plain(*a, window=WINDOW))
+    sync()
     for name, (g, w) in results.items():
         same = all(torch.equal(a, b) for a, b in zip(g, w))
-        say(f"phase kernels: {name} kernel == plain on {B} rows: {same}")
+        say(f"phase kernels: {name} kernel == plain on {g[0].shape[0]} rows: {same}")
         if not same:
             fail(f"{name} differs from its plain version")
 
-    # 7. structure: the card's build (K1/K2) equals the CPU's (plain), array for array
+    # 11. structure: the card's build (K1/K2) equals the CPU's (plain), array for array
     sub = [keys[i] for i in np.sort(rng.choice(N_KEYS, N_SUBSET, replace=False))]
     ss = StringSet.from_list(sub)
     t = time.time()
@@ -254,7 +563,7 @@ def main() -> int:
     if diff or bg.root_item != bc.root_item:
         fail(f"cuda and cpu builds differ: {diff}")
 
-    # 8. times at main-path shapes
+    # 12. times at each path's shapes; bytes and operations this run's data needs
     levels = results["fused_search"][0][2]
     hit = results["fused_search"][0][0]
     nbytes = {
@@ -266,31 +575,68 @@ def main() -> int:
     }
     active = (torch.minimum(ql.long(), start.long() + steps) - start.long()).clamp(0, steps)
     n_steps = int(active.sum())
+    R = ti.cdf_tab.shape[0]
     table_bytes = 2 * ti.cdf_tab.numel() * 4
     nbytes["hpt_cdf"] = B * (W + 12) + min(8 * n_steps, table_bytes)
+    nbytes["hpt_cdf_onehot"] = nbytes["hpt_cdf"]
     nbytes["hpt_locate"] = B * (W + 24) + min(8 * n_steps, table_bytes)
     nbytes["cnode_probe"] = B * (K * 4 + 16)
+    # rank: query rows in, ranks out, and what the searches must read of the
+    # order and its pools (PoolReads, from the plain version's trace)
+    lt = index.ti
+    base = PoolReads(ti0.ent_sorted, ti0.ent_off, ti0.ent_len, ti0.key_bytes)
+    base.ranked(sqb, sql, rank_trace)
+    nbytes["rank"] = B * (W + 8) + base.total()
+    # scan (live delta): query rows in, windows out, and what both ranks and
+    # the merge must read: a compare reads both heads up to the deciding byte,
+    # a lone stream's head only its order word (and a delta's tombstone flag)
+    base = PoolReads(lt.ent_sorted, lt.ent_off, lt.ent_len, lt.key_bytes)
+    delta = PoolReads(lt.ds_order, lt.de_off, lt.de_len, lt.db_bytes)
+    base.ranked(sqb, sql, scan_trace["base"])
+    delta.ranked(sqb, sql, scan_trace["delta"])
+    for be, de, b_read, d_read, took in scan_trace["merge"]:
+        both = b_read & d_read
+        (dv, dl), (bv, bl) = delta.rows(de, W), base.rows(be, W)
+        d_need, b_need = decided_at(dv, bv, dl, bl)
+        base.read(be, both, b_need)
+        base.read(be, b_read & ~d_read)
+        delta.read(de, both, d_need, flag=False)
+        delta.read(de, took, flag=True)
+    nbytes["scan"] = B * (W + 4) + B * WINDOW * 6 + base.total() + delta.total()
+    # K7 computes K2's function: its bound is K2's; the one-hot sweep's
+    # (4R + 3) float operations per step are how K7 works, not what it needs
     flops = {"fused_search": 0.0, "hpt_cdf": 3.0 * n_steps,
-             "hpt_locate": 3.0 * n_steps + 2.0 * B, "cnode_probe": 0.0}
+             "hpt_locate": 3.0 * n_steps + 2.0 * B, "cnode_probe": 0.0,
+             "hpt_cdf_onehot": 3.0 * n_steps, "rank": 0.0, "scan": 0.0}
+    say(f"phase times: hpt_cdf_onehot's one-hot sweep does {(4.0 * R + 3.0) * n_steps:.0f} "
+        f"float ops ({R} rows per step); its bound counts K2's {3.0 * n_steps:.0f}")
+    launches = dict(main_launches)
+    launches.update(rank=range_launches["rank"], scan=range_launches["scan"],
+                    hpt_cdf_onehot=onehot_launches["hpt_cdf_onehot"])
+    reps = {"hpt_cdf_onehot": 10}
     rows = []
     for name, (src, replaces) in KERNELS.items():
         args, kern, plain = inputs[name]
-        ms = time_cuda(lambda: kern(*args), reps=50)
+        ms = time_cuda(lambda: kern(*args), reps=reps.get(name, 50))
         plain_ms = time_cuda(lambda: plain(*args), reps=3, warmup=1)
         b_ms, b_by = bound_ms(nbytes[name], flops[name])
         g, w = results[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": main_launches[name], "max_abs_err": max_abs_err(g, w),
+                     "launches": launches[name], "max_abs_err": max_abs_err(g, w),
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
-        say(f"phase times: {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-            f"by {b_by}, {nbytes[name]} bytes), main-path launches {main_launches[name]}")
+        say(f"phase times: {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.5f} ms "
+            f"by {b_by}, {nbytes[name]} bytes, {flops[name]:.0f} float ops), "
+            f"path launches {launches[name]}")
     if main_launches["cnode_probe"] == 0:
         say("phase times: cnode_probe runs inline in every fused_search launch "
             f"({main_launches['fused_search']} on the main path); its own entry is "
             "launched only here, against its plain version")
+    scan_empty_ms = time_cuda(lambda: scan.fused_scan_cuda(ti0, sqb, sql, window=WINDOW), reps=50)
+    say(f"phase times: scan with an empty delta {scan_empty_ms:.4f} ms; scan_batch "
+        f"{scans_empty:.0f} scans/s (empty delta), {scans_live:.0f} scans/s (live delta)")
 
-    # 9. where one get_batch's time goes: each stage alone, a sync after it
+    # 13. where one get_batch's time goes: each stage alone, a sync after it
     q = batches[1]
     split = {}
 

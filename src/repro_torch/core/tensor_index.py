@@ -3,16 +3,23 @@
 ``freeze`` exports a :class:`TensorIndex` (a dataclass of flat tensors on
 one device) from a host :class:`~repro_torch.core.builder.LITSBuilder`.  It
 has the data fields and ``STATIC_FIELDS`` of :class:`repro.core.tensor_index.TensorIndex`.
-The read side of the reference's operations:
+The reference's operations, less compaction:
 
 * :func:`search_batch`  — paper Alg. 2, batched point lookup with the
   delta-buffer probe
 * :func:`base_search`   — the walk + terminal resolve, no delta probe
 * :func:`lookup_values` — (lo, hi) 2×int32 value fetch
+* :func:`rank_batch`    — ordered rank into the frozen order
+* :func:`scan_batch`    — delta-aware range scans (read-your-writes)
+* :func:`insert_batch` / :func:`delete_batch` — the write path: upserts and
+  tombstones in the delta buffer, in op order
+* :func:`delta_sort_order` — the sorted view of the claimed delta entries
 
-The tensors' device decides the walk: K4 (``csrc/traverse.cu``) on the
-card, the plain :mod:`repro_torch.core.walk` on the CPU.  The delta probe is
-plain tensor code on either, as the reference keeps it outside its kernel.
+The tensors' device decides the kernels: K4 (``csrc/traverse.cu``), K5
+(``csrc/rank.cu``) and K6 (``csrc/scan.cu``) on the card, the plain
+:mod:`repro_torch.core.walk` on the CPU.  The delta probe and the write
+path are plain tensor code on either, as the reference keeps them outside
+its kernels.
 
 Dtypes follow the reference, except ``de_hash``: the reference's uint32
 hashes are held as int64 in [0, 2**32), which torch compares exactly.
@@ -26,8 +33,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.ops import fused_search
-from repro_torch.kernels.strops import hash32, str_eq, take
+from repro_torch.kernels.ops import fused_rank, fused_scan, fused_search
+from repro_torch.kernels.strops import gather_bytes, hash32, str_eq, take
 
 from .builder import LITSBuilder
 from .hpt import MAX_CDF_STEPS
@@ -270,3 +277,232 @@ def lookup_values(ti: TensorIndex, eid, is_delta):
     e = eid.clamp(min=0)
     return (torch.where(is_delta, take(ti.de_val_lo, e), take(ti.ent_val_lo, e)),
             torch.where(is_delta, take(ti.de_val_hi, e), take(ti.ent_val_hi, e)))
+
+
+# ---------------------------------------------------------------------------
+# ordered rank + scan
+# ---------------------------------------------------------------------------
+
+def rank_batch(ti: TensorIndex, qbytes, qlens):
+    """First rank r such that key(ent_sorted[r]) >= query: (B,) int32."""
+    return fused_rank(ti, qbytes, qlens)
+
+
+def scan_batch(ti: TensorIndex, qbytes, qlens, window: int = 16):
+    """Delta-aware range scan: the next ``window`` keys >= each query in the
+    live index order.  Returns ``(eids, valid, is_delta)``, each
+    ``(B, window)``, in the :func:`lookup_values` contract: unmerged delta
+    inserts appear in order, tombstoned keys are suppressed."""
+    return fused_scan(ti, qbytes, qlens, window=window)
+
+
+# ---------------------------------------------------------------------------
+# the write path: delta-buffer upserts and tombstones
+# ---------------------------------------------------------------------------
+
+def delta_sort_order(db_bytes, de_off, de_len, de_count, width: int) -> torch.Tensor:
+    """Entry ids of the delta pool in key order (int32, one per slot).
+
+    Keys are zero-masked ``width``-byte windows packed 4 bytes to a
+    big-endian word, ordered by word and then by true length: the
+    ``str_cmp_full`` order.  Unclaimed slots (``>= de_count``) sort last and
+    keep their index order.  A chain of stable sorts from the least
+    significant key (length, then the words from last to first, then the
+    claimed flag) gives the reference's ``lexsort``; the words sort as
+    int64, where they are exact and non-negative.
+    """
+    dcap = de_off.shape[0]
+    dev = de_off.device
+    cols = torch.arange(width, device=dev)[None, :]
+    kb = torch.where(cols < de_len[:, None], gather_bytes(db_bytes, de_off, width), 0).long()
+    pad = (-width) % 4
+    if pad:
+        kb = torch.cat([kb, kb.new_zeros((dcap, pad))], dim=1)
+    w = kb.reshape(dcap, -1, 4)
+    packed = (w[:, :, 0] << 24) | (w[:, :, 1] << 16) | (w[:, :, 2] << 8) | w[:, :, 3]
+    unclaimed = (torch.arange(dcap, device=dev) >= de_count).int()
+    keys = [de_len] + [packed[:, i] for i in range(packed.shape[1] - 1, -1, -1)] + [unclaimed]
+    order = torch.arange(dcap, device=dev)
+    for key in keys:
+        order = order[torch.sort(key[order], stable=True).indices]
+    return order.int()
+
+
+def _sink(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with one trailing scratch element: a write aimed past the end
+    of ``t`` lands there and is dropped, as the reference's
+    ``mode="drop"`` scatters drop it."""
+    return torch.cat([t, t.new_zeros(1)])
+
+
+def _get(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[idx]`` for a 0-d index tensor, as a 0-d tensor, without a host sync."""
+    return t.index_select(0, idx.reshape(1).long()).reshape(())
+
+
+def _put_at(t: torch.Tensor, idx: torch.Tensor, val) -> None:
+    """``t[idx] = val`` for a 0-d index, in place and without a host sync."""
+    t.index_put_((idx.reshape(1).long(),), torch.as_tensor(val, dtype=t.dtype,
+                                                            device=t.device).reshape(1))
+
+
+def _base_values(ti: TensorIndex, bfound, beid, is_del, val_lo, val_hi):
+    """The base-value update of a batch.  The reference scatters one write
+    per op: a base put writes its value at its entry, every other op writes
+    the old value at index 0, and duplicate indices resolve last write wins.
+    So for each index the op with the highest position writes; found with a
+    max over op positions, this is deterministic on every device.  A base
+    put to entry 0 followed by any other op in its batch is lost, as in the
+    reference."""
+    B = bfound.shape[0]
+    dev = bfound.device
+    if B == 0:
+        return ti.ent_val_lo, ti.ent_val_hi
+    do_base = bfound & ~is_del
+    upd_idx = torch.where(do_base, beid, 0).long()
+    pos = torch.arange(B, device=dev)
+    winner = torch.full((ti.ent_val_lo.shape[0],), -1, dtype=torch.long, device=dev)
+    winner = winner.scatter_reduce(0, upd_idx, pos, reduce="amax")
+    wrote = winner >= 0
+    w = winner.clamp(min=0)
+    out = []
+    for field, val in ((ti.ent_val_lo, val_lo), (ti.ent_val_hi, val_hi)):
+        new = torch.where(do_base, val, take(field, upd_idx))
+        out.append(torch.where(wrote, new[w], field))
+    return out
+
+
+def _mutate_batch(ti: TensorIndex, kbytes, klens, val_lo, val_hi, is_del):
+    """The shared body of :func:`insert_batch` and :func:`delete_batch`.
+
+    Ops run in order, each seeing the slots, tombstones and rejects of the
+    ones before it.  A put upserts: a base key gets its value updated, a
+    delta key its value refreshed and its tombstone cleared (resurrect), an
+    unknown key a fresh delta entry.  A delete sets the tombstone of a delta
+    key, or claims a tombstone entry for a key that lives only in the base.
+
+    Returns ``(new_ti, in_base, newly, match, prev_live, rejected)``: the
+    base walk's hits and, per op, a fresh slot claimed, an existing delta
+    entry hit, that entry live before the op, and a needed slot refused
+    because the pools were full.  Nothing here syncs with the host.
+
+    The reference re-sorts ``ds_order`` under a ``lax.cond`` only when a
+    fresh slot was claimed.  Deciding that here would need a host sync, so
+    the sort runs on every batch and its result is kept only where a slot
+    was claimed: the same ``ds_order``, with device work wasted on batches
+    that claim nothing (delete-only or update-only ones).
+    """
+    B, W = kbytes.shape
+    dev = kbytes.device
+    klens = klens.to(torch.int32)
+    bfound, beid, _ = fused_search(ti, kbytes, klens)
+    ent_val_lo, ent_val_hi = _base_values(ti, bfound, beid, is_del, val_lo, val_hi)
+    qh = hash32(kbytes, klens)
+    hcap, dcap, dbcap = ti.dh_slot.shape[0], ti.de_off.shape[0], ti.db_bytes.shape[0]
+    P = ti.delta_probes
+    probes = torch.arange(P, device=dev)
+    wj = torch.arange(W, device=dev)
+    # working copies, each with a trailing sink for dropped writes
+    dh_slot, db_bytes = _sink(ti.dh_slot), _sink(ti.db_bytes)
+    de_off, de_len = _sink(ti.de_off), _sink(ti.de_len)
+    de_vlo, de_vhi = _sink(ti.de_val_lo), _sink(ti.de_val_hi)
+    de_hash, de_tomb = _sink(ti.de_hash), _sink(ti.de_tomb)
+    db_used, de_count, overflow = ti.db_used, ti.de_count, ti.delta_overflow
+    newly, match, prev_live, rejected = [], [], [], []
+    for i in range(B):
+        kb, kl, h, dele = kbytes[i], klens[i], qh[i], is_del[i]
+        # the delta_probes probes at once: first free slot, and the first
+        # probe that is free or holds the key, if it holds the key
+        slots = (h + probes) & (hcap - 1)
+        de = dh_slot[slots]
+        free = de < 0
+        dei = de.clamp(min=0).long()
+        off2 = de_off[dei]
+        klen2 = de_len[dei]
+        kb2 = db_bytes[(off2[:, None] + wj[None, :]).clamp(max=dbcap - 1)]
+        key_eq = (~free & (de_hash[dei] == h)
+                  & (torch.where(wj[None, :] < klen2[:, None], kb2, 0) == kb).all(dim=1)
+                  & (klen2 == kl))
+        first_free = torch.where(free, probes, P).min()
+        fslot = torch.where(first_free < P, _get(slots, first_free.clamp(max=P - 1)), -1)
+        stop = torch.where(free | key_eq, probes, P).min().clamp(max=P - 1)
+        hit = _get(key_eq, stop)
+        mde = torch.where(hit, _get(de, stop), 0)
+        was_live = hit & ~_get(de_tomb, mde)
+        # a matched entry: a put refreshes the value and clears the tombstone,
+        # a delete sets the tombstone and keeps the value
+        upd = torch.where(hit & ~dele, mde, dcap)
+        _put_at(de_vlo, upd, val_lo[i])
+        _put_at(de_vhi, upd, val_hi[i])
+        _put_at(de_tomb, torch.where(hit, mde, dcap), dele)
+        # a fresh slot: a put of an unknown key, or a delete of a key that
+        # lives only in the base; over-width keys never get one
+        want_new = (kl <= W) & ~hit & torch.where(dele, bfound[i], ~bfound[i])
+        can = want_new & (fslot >= 0) & (de_count < dcap) & (db_used + kl <= dbcap)
+        did = torch.where(can, de_count, dcap)
+        _put_at(dh_slot, torch.where(can, fslot, hcap), de_count)
+        widx = torch.where((wj < kl) & can, db_used + wj, dbcap).long()
+        db_bytes.index_put_((widx,), kb)
+        _put_at(de_off, did, db_used)
+        _put_at(de_len, did, kl)
+        _put_at(de_vlo, did, val_lo[i])
+        _put_at(de_vhi, did, val_hi[i])
+        _put_at(de_hash, did, h)
+        _put_at(de_tomb, did, dele)
+        db_used = torch.where(can, db_used + kl, db_used)
+        de_count = torch.where(can, de_count + 1, de_count)
+        refused = want_new & ~can
+        overflow = overflow | refused
+        newly.append(can)
+        match.append(hit)
+        prev_live.append(was_live)
+        rejected.append(refused)
+    newly, match, prev_live, rejected = (torch.stack(x) if x else torch.zeros(
+        0, dtype=torch.bool, device=dev) for x in (newly, match, prev_live, rejected))
+    de_off, de_len = de_off[:-1], de_len[:-1]
+    db_bytes = db_bytes[:-1]
+    # the claimed key set changes only when a fresh slot was claimed; the
+    # reference keeps the old view otherwise, and so does this select
+    ds_order = torch.where(newly.any(), delta_sort_order(db_bytes, de_off, de_len, de_count, W),
+                           ti.ds_order)
+    nti = dataclasses.replace(
+        ti, ent_val_lo=ent_val_lo, ent_val_hi=ent_val_hi, dh_slot=dh_slot[:-1],
+        db_bytes=db_bytes, db_used=db_used, de_off=de_off, de_len=de_len,
+        de_val_lo=de_vlo[:-1], de_val_hi=de_vhi[:-1], de_hash=de_hash[:-1],
+        de_tomb=de_tomb[:-1], de_count=de_count, ds_order=ds_order, delta_overflow=overflow)
+    return nti, bfound, newly, match, prev_live, rejected
+
+
+def insert_batch(ti: TensorIndex, kbytes, klens, val_lo, val_hi):
+    """Batched upsert.  Returns ``(new_ti, inserted, updated)``.
+
+    Keys in the base get their value updated; new keys go to the delta
+    buffer; a put on a tombstoned key resurrects it (inserted).  Over-width
+    keys (length ``width + 1``, the ``pad_queries`` sentinel) are rejected,
+    both masks False; so are puts that find the delta pools full
+    (``new_ti.delta_overflow`` latches).
+    """
+    B = kbytes.shape[0]
+    nti, in_base, newly, match, prev_live, _rej = _mutate_batch(
+        ti, kbytes, klens, val_lo.to(torch.int32), val_hi.to(torch.int32),
+        torch.zeros(B, dtype=torch.bool, device=kbytes.device))
+    return nti, newly | (match & ~prev_live), prev_live | (in_base & ~match)
+
+
+def delete_batch(ti: TensorIndex, kbytes, klens):
+    """Batched delete by delta tombstones.  Returns
+    ``(new_ti, deleted, rejected)``: ``deleted`` marks keys that were live
+    and are now unpublished; ``rejected`` marks deletes that needed a
+    tombstone slot when the pools were full.  Absent and over-width keys
+    come back with both masks False."""
+    B = kbytes.shape[0]
+    z = torch.zeros(B, dtype=torch.int32, device=kbytes.device)
+    nti, _in_base, newly, _match, prev_live, rejected = _mutate_batch(
+        ti, kbytes, klens, z, z, torch.ones(B, dtype=torch.bool, device=kbytes.device))
+    return nti, newly | prev_live, rejected
+
+
+def delta_fill_fraction(ti: TensorIndex) -> float:
+    """Claimed share of the delta entry pool.  Syncs with the device; the
+    facade keeps a host mirror instead."""
+    return float(ti.de_count) / ti.de_off.shape[0]

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, ``build/lib<name>-<digest>.so`` at
 the repo root, and is loaded with ``ctypes``.  The digest covers the source,
-the shared headers and the flags, so an edited source never loads a stale
-library.  Nothing is built when a module is imported: :func:`library` builds
+the headers it includes (transitively) and the flags, so an edited source
+never loads a stale library and a new header rebuilds only its includers.  Nothing is built when a module is imported: :func:`library` builds
 at first use, and :func:`build_all` starts one ``nvcc`` per source at once.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*``,
@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -29,13 +30,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("hpt_cdf", "hpt_locate", "cnode_probe", "traverse")
+SOURCES = ("hpt_cdf", "hpt_locate", "cnode_probe", "traverse", "rank", "scan",
+           "hpt_cdf_onehot")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launches of each kernel through its wrapper (not of the plain versions)
-LAUNCHES: Dict[str, int] = {name: 0 for name in ("hpt_cdf", "hpt_locate",
-                                                 "cnode_probe", "fused_search")}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    "hpt_cdf", "hpt_locate", "cnode_probe", "fused_search", "rank", "scan", "hpt_cdf_onehot")}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -66,9 +68,23 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
+
+
+def _sources_of(name: str):
+    """``csrc/<name>.cu`` and every local header it includes, in include order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        p = todo.pop(0)
+        if p not in seen:
+            seen.append(p)
+            todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(p.read_bytes())]
+    return seen
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    for p in _sources_of(name):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

@@ -1,9 +1,17 @@
-"""K2: batched HPT GetCDF (paper Alg. 1) — CUDA kernel and its plain version.
+"""K2 and K7: batched HPT GetCDF (paper Alg. 1) — CUDA kernels and their
+plain versions.
 
-Replaces ``repro/kernels/hpt_cdf.py::_cdf_kernel_gather``.  The kernel is
+K2 replaces ``repro/kernels/hpt_cdf.py::_cdf_kernel_gather``.  The kernel is
 ``csrc/hpt_cdf.cu``: one thread per query walks its suffix, reading the two
 HPT tables from device memory.  The plain version is the reference
 ``get_cdf_impl`` in tensor ops.
+
+K7 replaces ``_cdf_kernel_onehot``, the same walk with each table value
+selected by a one-hot contraction over the table's rows.  The kernel is
+``csrc/hpt_cdf_onehot.cu`` (a warp per query sweeps the rows of the step's
+column); the plain version multiplies a (B, R) one-hot by the table in true
+float32 and selects the column with a second one-hot.  Exactly one weight is
+non-zero, so on finite tables both equal K2 bit for bit.
 
 Numerics: ``cdf += prob * cval`` is two separately rounded float32 ops (the
 reference does not contract it to an FMA), and ``prob *= pval``.  A step is
@@ -48,9 +56,40 @@ def hpt_cdf_plain(qbytes, qlens, start, cdf_tab, prob_tab,
     return cdf
 
 
-def hpt_cdf_cuda(qbytes, qlens, start, cdf_tab, prob_tab,
-                 max_steps: int = MAX_CDF_STEPS) -> torch.Tensor:
-    """Launch K2.  ``qlens``/``start`` are (B,) int32; tables (R, C) float32."""
+def hpt_cdf_onehot_plain(qbytes, qlens, start, cdf_tab, prob_tab,
+                         max_steps: int = MAX_CDF_STEPS) -> torch.Tensor:
+    """Plain one-hot GetCDF: per step a (B, R) row one-hot times each table
+    (a true float32 product, never TF32), then a (B, C) column one-hot."""
+    R, C = cdf_tab.shape
+    B, L = qbytes.shape
+    dev = qbytes.device
+    start = _build.as_rows(start, B, torch.int64, dev)
+    qlens = qlens.long()
+    cdf = torch.zeros(B, dtype=torch.float32, device=dev)
+    prob = torch.ones(B, dtype=torch.float32, device=dev)
+    h = torch.zeros(B, dtype=torch.int64, device=dev)
+    rows = torch.arange(R, device=dev)[None, :]
+    cols = torch.arange(C, device=dev)[None, :]
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        for k in range(min(max_steps, L)):
+            pos = start + k
+            c = qbytes.gather(1, pos.clamp(0, L - 1)[:, None])[:, 0].long().clamp(max=C - 1)
+            active = pos < qlens
+            row_oh = (rows == (h & (R - 1))[:, None]).float()
+            col_oh = (cols == c[:, None]).float()
+            cval = (torch.matmul(row_oh, cdf_tab) * col_oh).sum(dim=1)
+            pval = (torch.matmul(row_oh, prob_tab) * col_oh).sum(dim=1)
+            cdf = cdf + torch.where(active, prob * cval, 0.0)
+            prob = prob * torch.where(active, pval, 1.0)
+            h = torch.where(active, ((h ^ c) * FNV_PRIME) & U32, h)
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    return cdf
+
+
+def _check_cdf_args(qbytes, qlens, start, cdf_tab, prob_tab):
     B, L = qbytes.shape
     R, C = cdf_tab.shape
     dev = qbytes.device
@@ -61,7 +100,30 @@ def hpt_cdf_cuda(qbytes, qlens, start, cdf_tab, prob_tab,
     _build.check(prob_tab, "prob_tab", torch.float32, (R, C), dev)
     if R & (R - 1):
         raise ValueError(f"HPT rows must be a power of two, got {R}")
-    out = torch.empty(B, dtype=torch.float32, device=dev)
+    return B, L, R, C
+
+
+def hpt_cdf_onehot_cuda(qbytes, qlens, start, cdf_tab, prob_tab,
+                        max_steps: int = MAX_CDF_STEPS) -> torch.Tensor:
+    """Launch K7; the same arguments as :func:`hpt_cdf_cuda`."""
+    B, L, R, C = _check_cdf_args(qbytes, qlens, start, cdf_tab, prob_tab)
+    out = torch.empty(B, dtype=torch.float32, device=qbytes.device)
+    if B == 0:
+        return out
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch(
+        "hpt_cdf_onehot", "lits_hpt_cdf_onehot", [P, P, P, P, P, I, I, I, I, I, P],
+        qbytes.data_ptr(), qlens.data_ptr(), start.data_ptr(), cdf_tab.data_ptr(),
+        prob_tab.data_ptr(), B, L, R, C, int(max_steps), out.data_ptr())
+    _build.LAUNCHES["hpt_cdf_onehot"] += 1
+    return out
+
+
+def hpt_cdf_cuda(qbytes, qlens, start, cdf_tab, prob_tab,
+                 max_steps: int = MAX_CDF_STEPS) -> torch.Tensor:
+    """Launch K2.  ``qlens``/``start`` are (B,) int32; tables (R, C) float32."""
+    B, L, R, C = _check_cdf_args(qbytes, qlens, start, cdf_tab, prob_tab)
+    out = torch.empty(B, dtype=torch.float32, device=qbytes.device)
     if B == 0:
         return out
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -73,12 +135,20 @@ def hpt_cdf_cuda(qbytes, qlens, start, cdf_tab, prob_tab,
     return out
 
 
-def hpt_cdf(qbytes, qlens, start=0, *, cdf_tab, prob_tab,
+VARIANTS = {"gather": (hpt_cdf_cuda, hpt_cdf_plain),
+            "onehot": (hpt_cdf_onehot_cuda, hpt_cdf_onehot_plain)}
+
+
+def hpt_cdf(qbytes, qlens, start=0, *, cdf_tab, prob_tab, variant: str = "gather",
             max_steps: int = MAX_CDF_STEPS) -> torch.Tensor:
-    """Batched GetCDF: K2 for CUDA tensors, the plain version for CPU ones."""
+    """Batched GetCDF.  ``variant`` "gather" is K2 and "onehot" K7 for CUDA
+    tensors; CPU tensors run the variant's plain version."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown GetCDF variant {variant!r}; expected one of {list(VARIANTS)}")
+    kernel, plain = VARIANTS[variant]
     B = qbytes.shape[0]
     if qbytes.is_cuda:
-        return hpt_cdf_cuda(qbytes, _build.as_rows(qlens, B, torch.int32, qbytes.device),
-                            _build.as_rows(start, B, torch.int32, qbytes.device),
-                            cdf_tab, prob_tab, max_steps)
-    return hpt_cdf_plain(qbytes, qlens, start, cdf_tab, prob_tab, max_steps)
+        return kernel(qbytes, _build.as_rows(qlens, B, torch.int32, qbytes.device),
+                      _build.as_rows(start, B, torch.int32, qbytes.device),
+                      cdf_tab, prob_tab, max_steps)
+    return plain(qbytes, qlens, start, cdf_tab, prob_tab, max_steps)

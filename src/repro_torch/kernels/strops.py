@@ -53,6 +53,36 @@ def str_cmp_prefix(qbytes, pool, off, pl) -> torch.Tensor:
     return torch.sign(d) * any_neq.int()
 
 
+def _cmp_tail(va, vb, lencmp) -> torch.Tensor:
+    """The one ordering rule of every full-key compare: the first differing
+    byte decides, else the length tie-break.  int32."""
+    neq = va != vb
+    any_neq = neq.any(dim=1)
+    first = neq.int().argmax(dim=1, keepdim=True)
+    bytecmp = torch.sign(va.gather(1, first)[:, 0] - vb.gather(1, first)[:, 0])
+    return torch.where(any_neq, bytecmp, lencmp).int()
+
+
+def str_cmp_full(qbytes, qlens, pool, off, klen) -> torch.Tensor:
+    """Full strcmp sign of padded query rows against pool keys; equal padded
+    bytes resolve by length."""
+    W = qbytes.shape[1]
+    kb = gather_bytes(pool, off, W)
+    mask = torch.arange(W, device=qbytes.device)[None, :] < klen[:, None]
+    kv = torch.where(mask, kb.int(), 0)
+    return _cmp_tail(qbytes.int(), kv, torch.sign(qlens.int() - klen.int()))
+
+
+def str_cmp_pools(pool_a, off_a, len_a, pool_b, off_b, len_b, width: int) -> torch.Tensor:
+    """sign(strcmp(a, b)) between entries of two flat byte pools: both keys
+    gathered as ``width``-byte windows masked past their lengths, under the
+    same rule as :func:`str_cmp_full`."""
+    cols = torch.arange(width, device=off_a.device)[None, :]
+    va = torch.where(cols < len_a[:, None], gather_bytes(pool_a, off_a, width).int(), 0)
+    vb = torch.where(cols < len_b[:, None], gather_bytes(pool_b, off_b, width).int(), 0)
+    return _cmp_tail(va, vb, torch.sign(len_a.int() - len_b.int()))
+
+
 def _fnv1a(qbytes, qlens) -> torch.Tensor:
     """Rolling FNV-1a over min(len, width) bytes of each padded row (int64)."""
     B, W = qbytes.shape

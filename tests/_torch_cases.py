@@ -77,3 +77,24 @@ def tie_table(cdf: np.ndarray):
     qb = np.arange(1, 1 + cdf.shape[0], dtype=np.uint8)[:, None]
     ql = np.ones(cdf.shape[0], np.int32)
     return cdf_tab, prob_tab, qb, ql
+
+
+def entry_key(ti, eid: int, is_delta: bool) -> bytes:
+    """Key bytes of a base entry (``is_delta`` False) or a delta entry."""
+    if is_delta:
+        off, ln, pool = int(ti.de_off[eid]), int(ti.de_len[eid]), ti.db_bytes
+    else:
+        off, ln, pool = int(ti.ent_off[eid]), int(ti.ent_len[eid]), ti.key_bytes
+    return pool[off: off + ln].cpu().numpy().tobytes()
+
+
+def scan_entries(ti, eids, valid, is_delta):
+    """``scan_batch`` windows -> per row a list of (key, int64 value)."""
+    from repro_torch.core.tensor_index import lookup_values
+
+    lo, hi = lookup_values(ti, eids, is_delta)
+    vals = (hi.long() << 32) | (lo.long() & 0xFFFFFFFF)
+    return [[(entry_key(ti, int(e), bool(d)), int(v))
+             for e, ok, d, v in zip(er, vr, dr, xr) if ok]
+            for er, vr, dr, xr in zip(eids.tolist(), valid.tolist(), is_delta.tolist(),
+                                      vals.tolist())]

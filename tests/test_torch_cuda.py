@@ -133,3 +133,100 @@ def test_cuda_get_batch_matches_cpu(cuda):
     c = StringIndex.bulk_load(keys, vals, IndexConfig(device="cpu")).get_batch(queries)
     for a, b in zip(g, c):
         np.testing.assert_array_equal(a, b)
+
+
+def _write_ops(keys):
+    """Put and delete batches over base keys, fresh keys, duplicates and
+    over-width keys, with entry 0's key put ahead of other ops."""
+    fresh = [k + b"#%d" % i for i, k in enumerate(keys[:600])]
+    longk = [b"w" * 200]
+    return [
+        ("put", [keys[0]] + fresh[:200] + keys[1:100] + longk + fresh[:5]),
+        ("delete", keys[100:300] + fresh[100:150] + [b"never-stored"] + longk),
+        ("put", keys[100:150] + fresh[100:120] + fresh[200:400] + keys[400:450]),
+        ("delete", keys[120:130] + fresh[300:350] + keys[500:600]),
+    ]
+
+
+def test_cuda_write_path_matches_cpu(cuda):
+    """The same op sequence on a card index (K4 base walk) and a CPU index
+    (the plain walk) leaves every field, and the returned masks, equal."""
+    from repro_torch.index import IndexConfig, StringIndex
+
+    keys = synthetic.load("url", 6000, seed=9)
+    vals = np.arange(len(keys), dtype=np.int64) * 7
+    g = StringIndex.bulk_load(keys, vals, IndexConfig(delta_capacity=1024))
+    c = StringIndex.bulk_load(keys, vals, IndexConfig(device="cpu", delta_capacity=1024))
+    ops, rng = _write_ops(keys), np.random.default_rng(10)
+    before = _build.LAUNCHES["fused_search"]
+    for kind, batch in ops:
+        if kind == "put":
+            v = rng.integers(-(1 << 62), 1 << 62, len(batch))
+            out = g.put_batch(batch, v), c.put_batch(batch, v)
+        else:
+            out = g.delete_batch(batch), c.delete_batch(batch)
+        for a, b in zip(*out):
+            np.testing.assert_array_equal(a, b)
+        for f in DATA_FIELDS:
+            assert torch.equal(getattr(g.ti, f).cpu(), getattr(c.ti, f)), f
+    assert _build.LAUNCHES["fused_search"] == before + len(ops)
+    assert g.delta_fill == c.delta_fill > 0
+
+
+def _live_index(dev):
+    from repro_torch.index import IndexConfig, StringIndex
+
+    keys = synthetic.load("url", 20000, seed=12)
+    ix = StringIndex.bulk_load(keys, None, IndexConfig(delta_capacity=2048, device=dev))
+    return keys, ix
+
+
+def _starts(keys, W, rng):
+    s = [keys[i] for i in rng.integers(0, len(keys), 6000)]
+    s += [k[: len(k) // 2] for k in s[:2000]] + [k + b"/" * W for k in s[:500]]
+    return s + [keys[i] + b"\x00" for i in rng.integers(0, len(keys), 1500)] + [b"", b"\xff"]
+
+
+def test_cuda_rank_and_scan_match_plain(cuda):
+    """K5 and K6 equal their plain versions, with an empty and a live delta."""
+    from repro_torch.kernels import rank, scan
+
+    keys, ix = _live_index("cuda")
+    ti = ix.ti
+    rng = np.random.default_rng(13)
+    qb, ql = _dev(cuda, *pad_queries(_starts(keys, ti.width, rng), ti.width))
+    assert torch.equal(rank.fused_rank_cuda(ti, qb, ql), rank.fused_rank_plain(ti, qb, ql))
+    for live in (False, True):
+        if live:
+            fresh = [keys[i] + b"~" for i in rng.integers(0, len(keys), 1500)]
+            ix.put_batch(fresh, np.arange(len(fresh)))
+            ix.delete_batch([keys[i] for i in rng.integers(0, len(keys), 400)] + fresh[::5])
+            ti = ix.ti
+            assert int(ti.de_count) > 0
+        for window in (1, 16):
+            before = _build.LAUNCHES["scan"]
+            got = scan.fused_scan_cuda(ti, qb, ql, window=window)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["scan"] == before + 1
+            want = scan.fused_scan_plain(ti, qb, ql, window=window)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            assert bool(got[2].any()) == live
+
+
+def test_cuda_onehot_cdf_matches_plain_and_k2(cuda):
+    """K7 equals its plain version and K2, and ops.hpt_cdf(variant="onehot")
+    launches K7, never K2."""
+    from repro_torch.kernels import ops
+
+    qb, ql, st, hpt = query_rows(np.random.default_rng(14), 20000, 48)
+    qb, ql, st, ct, pt = _dev(cuda, qb, ql, st, hpt.cdf_tab, hpt.prob_tab)
+    got = hpt_cdf.hpt_cdf_onehot_cuda(qb, ql, st, ct, pt)
+    assert torch.equal(got, hpt_cdf.hpt_cdf_onehot_plain(qb, ql, st, ct, pt))
+    assert torch.equal(got, hpt_cdf.hpt_cdf_cuda(qb, ql, st, ct, pt))
+    before = dict(_build.LAUNCHES)
+    via = ops.hpt_cdf(qb, ql, st, cdf_tab=ct, prob_tab=pt, variant="onehot")
+    torch.cuda.synchronize()
+    assert torch.equal(via, got)
+    assert _build.LAUNCHES["hpt_cdf_onehot"] == before["hpt_cdf_onehot"] + 1
+    assert _build.LAUNCHES["hpt_cdf"] == before["hpt_cdf"]

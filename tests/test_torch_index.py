@@ -146,13 +146,15 @@ def test_get_batch_values_equal():
 
 
 def test_live_delta_carried_across():
-    """A reference index with inserts and tombstones in its delta buffer,
-    carried into the port with convert.py, answers the same."""
+    """A reference index with inserts and tombstones in its delta buffer
+    (claimed out of key order, so its sorted view ``ds_order`` is no
+    identity), carried into the port with convert.py, answers the same and
+    takes further writes and scans the same."""
     keys = sorted(set(random_strings(np.random.default_rng(41), 300, 4, 16)))
     rb = RBuilder()
     rb.bulkload(RStringSet.from_list(keys), np.arange(len(keys), dtype=np.int64))
     rti = r_ti.freeze(rb, delta_capacity=128)
-    fresh = [b"delta-%04d" % i for i in range(80)]
+    fresh = [b"delta-%04d" % i for i in np.random.default_rng(42).permutation(80)]
     qb, ql = r_ti.pad_queries(fresh, rti.width)
     vals = np.arange(80, dtype=np.int64) * (1 << 33) + 11
     rti, ins, _ = r_ti.insert_batch(
@@ -178,6 +180,22 @@ def test_live_delta_carried_across():
     np.testing.assert_array_equal(t_hi.numpy(), np.asarray(r_hi))
     assert int(got[2].sum()) == 70                      # live delta hits
     assert not got[0][:20].any()                       # tombstones shadow the base
+    order = tti.ds_order.numpy()
+    assert (order[: int(tti.de_count)] != np.arange(int(tti.de_count))).any()
+    # scans merge the carried delta, and later writes keep both packages equal
+    qb, ql = r_ti.pad_queries(keys[::9] + [b"delta-", b""], rti.width)
+    want = r_ti.scan_batch(rti, jnp.asarray(qb), jnp.asarray(ql), 12, backend="jnp")
+    got = t_ti.scan_batch(tti, torch.from_numpy(qb), torch.from_numpy(ql), 12)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    more = [b"again-%02d" % i for i in range(5)] + fresh[:3] + keys[:2]
+    qb, ql = r_ti.pad_queries(more, rti.width)
+    z = np.arange(len(more), dtype=np.int32)
+    rti, r_ins, r_upd = r_ti.insert_batch(rti, *(jnp.asarray(x) for x in (qb, ql, z, z)))
+    tti, t_ins, t_upd = t_ti.insert_batch(tti, *(torch.from_numpy(x) for x in (qb, ql, z, z)))
+    np.testing.assert_array_equal(t_ins.numpy(), np.asarray(r_ins))
+    np.testing.assert_array_equal(t_upd.numpy(), np.asarray(r_upd))
+    _assert_same_index(rti, tti)
 
 
 def test_empty_root():
