@@ -15,12 +15,18 @@ size on one 1,000,000-key synthetic URL index:
   replayed on a CPU copy of the index;
 * ``ops.hpt_cdf(variant="onehot")``, the one-hot GetCDF.
 
+Every GetCDF (K2) and locate (K1) call of a second bulk load of the same
+keys (so that the recorder stays out of the timed one) is recorded and
+replayed afterwards, at its own shape, in one CUDA graph per kernel: the
+kernels' time at the shapes the build gives them.
+
 It builds every CUDA kernel from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version on the same inputs (exact equality),
 checks that each path went through its kernels (launch counts set to 0
 before the path and read after it), that the card-built and CPU-built pools
 are equal and that the card's writes equal the CPU's, and that every lookup
-and every scan window answers a host-side oracle; then it times each kernel.
+and every scan window answers a host-side oracle; then it times each kernel
+(CUDA events around 50 launches captured in one CUDA graph).
 It exits non-zero on any failure, and when there is no CUDA device.
 
 Output: one line per phase, then a JSON line of per-kernel numbers, then
@@ -29,6 +35,7 @@ the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import json
 import os
@@ -110,6 +117,162 @@ def max_abs_err(got, want) -> float:
 
 def join_values(lo, hi) -> np.ndarray:
     return (np.asarray(hi, np.int64) << 32) | np.asarray(lo, np.int32).view(np.uint32)
+
+
+def make_data(rng):
+    """The stored keys, the never-stored keys and the stored values."""
+    from repro_torch.data import synthetic
+
+    pool = synthetic.load("url", N_KEYS + N_EXTRA, seed=SEED)
+    perm = rng.permutation(len(pool))
+    keys = [pool[i] for i in perm[:N_KEYS]]
+    absent = [pool[i] for i in perm[N_KEYS:]]
+    values = rng.integers(-(1 << 62), 1 << 62, N_KEYS, dtype=np.int64)
+    return keys, absent, values
+
+
+class ModelCalls:
+    """The model calls of bulk loads: the host seconds spent in
+    ``LITSBuilder._query_rows``/``_values``/``_positions`` (the row copies,
+    K2/K1 and the copy of each result to the host) and, with ``keep``, every
+    GetCDF (K2) and locate (K1) call the builder makes through
+    ``core.builder.get_cdf``/``positions``, with its arguments and the
+    device output it got."""
+
+    TIMED = ("_query_rows", "_values", "_positions")
+    RECORDED = {"get_cdf": "hpt_cdf", "positions": "hpt_locate"}
+
+    def __init__(self, keep: bool = True):
+        self.calls = {"hpt_cdf": [], "hpt_locate": []}
+        self.seconds = 0.0
+        self.depth = 0
+        self.keep = keep
+
+    @contextlib.contextmanager
+    def on(self, cls):
+        """Time, and record if ``keep``, the calls of every ``cls`` builder
+        inside the block."""
+        mod = sys.modules[cls.__module__]
+        saved = [(cls, name, getattr(cls, name)) for name in self.TIMED]
+        if self.keep:
+            saved += [(mod, name, getattr(mod, name)) for name in self.RECORDED]
+
+        def timed(fn):  # outermost calls only: a builder may call one inside another
+            def call(*args):
+                self.depth += 1
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    self.depth -= 1
+                    if self.depth == 0:
+                        self.seconds += time.perf_counter() - t0
+            return call
+
+        def recorded(fn, kernel):
+            def call(*args):
+                out = fn(*args)
+                self.calls[kernel].append((args, out))
+                return out
+            return call
+
+        for owner, name, fn in saved:
+            setattr(owner, name, timed(fn) if owner is cls else recorded(fn, self.RECORDED[name]))
+        try:
+            yield self
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+
+
+def graph_ms(calls, reps: int = 5):
+    """Capture ``calls`` into one CUDA graph; mean milliseconds of a replay
+    after a warm-up one, and the captured calls' outputs (those of the last
+    replay)."""
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        outs = [call() for call in calls]
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, outs
+
+
+def kernel_ms(fn, reps: int) -> float:
+    """Mean milliseconds of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, so that no host time falls between the launches."""
+    return graph_ms([fn] * reps)[0] / reps
+
+
+def replay_args(calls, dev):
+    """Per recorded call, the arguments of ``hpt_cdf_cuda``/``hpt_locate_cuda``
+    as the dispatchers make them from the builder's scalars."""
+    from repro_torch.kernels._build import as_rows
+    from repro_torch.kernels.hpt_cdf import MAX_CDF_STEPS
+
+    i32 = lambda v, B: as_rows(v, B, torch.int32, dev)
+    f32 = lambda v, B: as_rows(v, B, torch.float32, dev)
+    args = {"hpt_cdf": [], "hpt_locate": []}
+    for (ct, pt, qb, ql, start), _ in calls["hpt_cdf"]:
+        B = qb.shape[0]
+        args["hpt_cdf"].append((qb, i32(ql, B), i32(start, B), ct, pt, MAX_CDF_STEPS))
+    for (ct, pt, qb, ql, start, alpha, beta, m), _ in calls["hpt_locate"]:
+        B = qb.shape[0]
+        args["hpt_locate"].append((qb, i32(ql, B), i32(start, B), f32(alpha, B), f32(beta, B),
+                                   i32(m, B), ct, pt, MAX_CDF_STEPS))
+    return args
+
+
+def cdf_work(name, B, W, n_steps, table_bytes):
+    """Bytes and float ops a K2 (``hpt_cdf``) or K1 (``hpt_locate``) launch
+    must move and do: the rows, the per-query words and the output once,
+    8 bytes of table per active step (at most both tables whole), 3 float
+    ops per active step and K1's locate, 2 per row."""
+    if name == "hpt_cdf":
+        return B * (W + 12) + min(8 * n_steps, table_bytes), 3.0 * n_steps
+    return B * (W + 24) + min(8 * n_steps, table_bytes), 3.0 * n_steps + 2.0 * B
+
+
+def replay_bound_ms(name, args):
+    """Sum over the launches of each one's bound (:func:`cdf_work`)."""
+    table_bytes = 2 * args[0][-3].numel() * 4
+    act = torch.stack([(a[1].long() - a[2].long()).clamp(0, min(a[-1], a[0].shape[1])).sum()
+                       for a in args]).cpu().tolist()
+    return sum(bound_ms(*cdf_work(name, *a[0].shape, n_steps, table_bytes))[0]
+               for a, n_steps in zip(args, act))
+
+
+def replay_bulk_load(rec, kernels, plains, dev, n_sample: int = 48):
+    """Launch every recorded K2/K1 call again through ``kernels[name]`` (the
+    ``*_cuda`` signature), in one CUDA graph per kernel, timed by CUDA events
+    around the whole replay.  Each replayed output must equal what the build
+    got from that call and, on a sample of calls (the largest among them),
+    the plain version.  Returns per kernel its numbers."""
+    args = replay_args(rec.calls, dev)
+    out = {}
+    for name, arglist in args.items():
+        n = len(arglist)
+        rows = np.array([a[0].shape[0] for a in arglist], np.int64)
+        ms, outs = graph_ms([lambda a=a: kernels[name](*a) for a in arglist])
+        tick = torch.zeros(1, device=dev)
+        floor_ms, _ = graph_ms([lambda: tick.add_(1.0)] * n)
+        got = torch.cat(outs)
+        used = torch.cat([o for _, o in rec.calls[name]])
+        sample = sorted(set(range(0, n, max(1, n // n_sample))) | {int(rows.argmax())})
+        plain_ok = all(torch.equal(plains[name](*arglist[i]), outs[i]) for i in sample)
+        out[name] = {"launches": n, "rows": int(rows.sum()), "median_rows": float(np.median(rows)),
+                     "p90_rows": float(np.percentile(rows, 90)), "max_rows": int(rows.max()),
+                     "ms": ms, "ms_per_launch": ms / n, "floor_ms": floor_ms,
+                     "bound_ms": replay_bound_ms(name, arglist),
+                     "equal_to_build": bool(torch.equal(got, used)),
+                     "equal_to_plain": plain_ok, "plain_sample": len(sample)}
+    return out
 
 
 class PoolReads:
@@ -262,11 +425,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core.builder import LITSBuilder
+    from repro_torch.core.hpt import uniform_hpt
     from repro_torch.core.strings import StringSet
     from repro_torch.core.tensor_index import (
         DATA_FIELDS, _delta_lookup, freeze, lookup_values, pad_queries)
     from repro_torch.core.walk import delta_rank_iters
-    from repro_torch.data import synthetic
     from repro_torch.index import IndexConfig, StringIndex
     from repro_torch.kernels import (
         _build, cnode_probe, hpt_cdf, hpt_locate, ops, rank, scan, traverse)
@@ -291,11 +454,7 @@ def main() -> int:
     # 3. data
     t = time.time()
     rng = np.random.default_rng(SEED)
-    pool = synthetic.load("url", N_KEYS + N_EXTRA, seed=SEED)
-    perm = rng.permutation(len(pool))
-    keys = [pool[i] for i in perm[:N_KEYS]]
-    absent = [pool[i] for i in perm[N_KEYS:]]
-    values = rng.integers(-(1 << 62), 1 << 62, N_KEYS, dtype=np.int64)
+    keys, absent, values = make_data(rng)
     say(f"phase data: url {len(keys)} stored + {len(absent)} never stored keys "
         f"in {time.time() - t:.1f} s")
 
@@ -492,6 +651,12 @@ def main() -> int:
     results["hpt_cdf_onehot"] = ((k7,), (hpt_cdf.hpt_cdf_onehot_plain(*args),))
     inputs["hpt_cdf_onehot"] = (args, hpt_cdf.hpt_cdf_onehot_cuda, hpt_cdf.hpt_cdf_onehot_plain)
     results["onehot == gather (K7 vs K2)"] = ((k7, onehot_out), (results["hpt_cdf"][0][0],) * 2)
+    # K2 with a one-row table, whose every read hits L1: the walk's own cost
+    one = uniform_hpt(1, 128)
+    one_row = (qb, ql, start, torch.from_numpy(one.cdf_tab).to(dev),
+               torch.from_numpy(one.prob_tab).to(dev), steps)
+    results["hpt_cdf, one-row table"] = ((hpt_cdf.hpt_cdf_cuda(*one_row),),
+                                         (hpt_cdf.hpt_cdf_plain(*one_row),))
 
     nid = torch.from_numpy(rng.integers(0, ti.mn_slot_base.shape[0], B)).to(dev)
     args = (qb, ql, start, ti.mn_alpha[nid].contiguous(), ti.mn_beta[nid].contiguous(),
@@ -533,23 +698,43 @@ def main() -> int:
         if not same:
             fail(f"{name} differs from its plain version")
 
-    # 11. structure: the card's build (K1/K2) equals the CPU's (plain), array for array
+    # 11. the bulk load's K2/K1 calls, recorded in a second build of the same
+    #     keys and replayed at their own shapes, one CUDA graph per kernel;
+    #     each output against the build's and the plain version
+    model_calls = ModelCalls()
+    sync()
+    t = time.time()
+    with model_calls.on(LITSBuilder):
+        StringIndex.bulk_load(keys, values, IndexConfig(device=DEVICE))
+    sync()
+    say(f"phase replay: recording bulk_load {time.time() - t:.2f} s, {model_calls.seconds:.2f} s "
+        "of it in _query_rows/_values/_positions (row copies, K2/K1, results to the host)")
+    replay = replay_bulk_load(
+        model_calls,
+        {"hpt_cdf": hpt_cdf.hpt_cdf_cuda, "hpt_locate": hpt_locate.hpt_locate_cuda},
+        {"hpt_cdf": hpt_cdf.hpt_cdf_plain, "hpt_locate": hpt_locate.hpt_locate_plain}, dev)
+    del model_calls
+    for name, r in replay.items():
+        say(f"phase replay: {name}: {r['launches']} launches (main path {main_launches[name]}) "
+            f"over {r['rows']} rows, median {r['median_rows']:.0f}, 90th percentile "
+            f"{r['p90_rows']:.0f}, largest {r['max_rows']}; {r['ms']:.4f} ms in all = "
+            f"{r['ms_per_launch'] * 1e3:.3f} us a launch (graph of as many 1-element adds: "
+            f"{r['floor_ms']:.4f} ms); bound {r['bound_ms']:.5f} ms; outputs equal to the "
+            f"build's {r['equal_to_build']}, to the plain version on {r['plain_sample']} "
+            f"launches {r['equal_to_plain']}")
+        if not (r["equal_to_build"] and r["equal_to_plain"]):
+            fail(f"the bulk load's {name} calls replay differently")
+        if r["launches"] != main_launches[name]:
+            fail(f"{r['launches']} {name} calls recorded, {main_launches[name]} launched "
+                 "on the main path")
+
+    # 12. structure: the card's build (K1/K2) equals the CPU's (plain), array for array
     sub = [keys[i] for i in np.sort(rng.choice(N_KEYS, N_SUBSET, replace=False))]
     ss = StringSet.from_list(sub)
     t = time.time()
     bg = LITSBuilder(device=DEVICE)
-    model_s = [0.0]  # time inside the model-value and slot-position calls
-
-    def timed(fn):
-        def call(*a):
-            t0 = time.perf_counter()
-            out = fn(*a)
-            model_s[0] += time.perf_counter() - t0
-            return out
-        return call
-
-    bg._values, bg._positions = timed(bg._values), timed(bg._positions)
-    bg.bulkload(ss, values[:N_SUBSET])
+    with ModelCalls(keep=False).on(LITSBuilder) as sub_calls:
+        bg.bulkload(ss, values[:N_SUBSET])
     tg_s = time.time() - t
     t = time.time()
     bc = LITSBuilder(device="cpu")
@@ -558,12 +743,12 @@ def main() -> int:
     fg, fc = freeze(bg), freeze(bc)
     diff = [f for f in DATA_FIELDS if not torch.equal(getattr(fg, f).cpu(), getattr(fc, f))]
     say(f"phase structure: {N_SUBSET} keys built on cuda ({tg_s:.1f} s, of which "
-        f"{model_s[0]:.2f} s in _values/_positions: K2/K1 with their copies) and cpu "
+        f"{sub_calls.seconds:.2f} s in _query_rows/_values/_positions) and cpu "
         f"({tc_s:.1f} s): pools differ in {diff or 'no field'}")
     if diff or bg.root_item != bc.root_item:
         fail(f"cuda and cpu builds differ: {diff}")
 
-    # 12. times at each path's shapes; bytes and operations this run's data needs
+    # 13. times at each path's shapes; bytes and operations this run's data needs
     levels = results["fused_search"][0][2]
     hit = results["fused_search"][0][0]
     nbytes = {
@@ -577,9 +762,9 @@ def main() -> int:
     n_steps = int(active.sum())
     R = ti.cdf_tab.shape[0]
     table_bytes = 2 * ti.cdf_tab.numel() * 4
-    nbytes["hpt_cdf"] = B * (W + 12) + min(8 * n_steps, table_bytes)
+    nbytes["hpt_cdf"], cdf_flops = cdf_work("hpt_cdf", B, W, n_steps, table_bytes)
     nbytes["hpt_cdf_onehot"] = nbytes["hpt_cdf"]
-    nbytes["hpt_locate"] = B * (W + 24) + min(8 * n_steps, table_bytes)
+    nbytes["hpt_locate"], locate_flops = cdf_work("hpt_locate", B, W, n_steps, table_bytes)
     nbytes["cnode_probe"] = B * (K * 4 + 16)
     # rank: query rows in, ranks out, and what the searches must read of the
     # order and its pools (PoolReads, from the plain version's trace)
@@ -605,9 +790,8 @@ def main() -> int:
     nbytes["scan"] = B * (W + 4) + B * WINDOW * 6 + base.total() + delta.total()
     # K7 computes K2's function: its bound is K2's; the one-hot sweep's
     # (4R + 3) float operations per step are how K7 works, not what it needs
-    flops = {"fused_search": 0.0, "hpt_cdf": 3.0 * n_steps,
-             "hpt_locate": 3.0 * n_steps + 2.0 * B, "cnode_probe": 0.0,
-             "hpt_cdf_onehot": 3.0 * n_steps, "rank": 0.0, "scan": 0.0}
+    flops = {"fused_search": 0.0, "hpt_cdf": cdf_flops, "hpt_locate": locate_flops,
+             "cnode_probe": 0.0, "hpt_cdf_onehot": cdf_flops, "rank": 0.0, "scan": 0.0}
     say(f"phase times: hpt_cdf_onehot's one-hot sweep does {(4.0 * R + 3.0) * n_steps:.0f} "
         f"float ops ({R} rows per step); its bound counts K2's {3.0 * n_steps:.0f}")
     launches = dict(main_launches)
@@ -617,7 +801,7 @@ def main() -> int:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         args, kern, plain = inputs[name]
-        ms = time_cuda(lambda: kern(*args), reps=reps.get(name, 50))
+        ms = kernel_ms(lambda: kern(*args), reps.get(name, 50))
         plain_ms = time_cuda(lambda: plain(*args), reps=3, warmup=1)
         b_ms, b_by = bound_ms(nbytes[name], flops[name])
         g, w = results[name]
@@ -625,6 +809,10 @@ def main() -> int:
                      "launches": launches[name], "max_abs_err": max_abs_err(g, w),
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
+        if name in replay:  # K2/K1 at the bulk load's own launch shapes
+            rows[-1]["bulk_load_replay"] = {k: replay[name][k] for k in (
+                "launches", "rows", "median_rows", "ms", "ms_per_launch", "floor_ms",
+                "bound_ms")}
         say(f"phase times: {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.5f} ms "
             f"by {b_by}, {nbytes[name]} bytes, {flops[name]:.0f} float ops), "
             f"path launches {launches[name]}")
@@ -632,11 +820,14 @@ def main() -> int:
         say("phase times: cnode_probe runs inline in every fused_search launch "
             f"({main_launches['fused_search']} on the main path); its own entry is "
             "launched only here, against its plain version")
-    scan_empty_ms = time_cuda(lambda: scan.fused_scan_cuda(ti0, sqb, sql, window=WINDOW), reps=50)
+    one_row_ms = kernel_ms(lambda: hpt_cdf.hpt_cdf_cuda(*one_row), 50)
+    next(r for r in rows if r["name"] == "hpt_cdf")["one_row_table_ms"] = one_row_ms
+    say(f"phase times: hpt_cdf with a one-row table (every table read from L1) {one_row_ms:.4f} ms")
+    scan_empty_ms = kernel_ms(lambda: scan.fused_scan_cuda(ti0, sqb, sql, window=WINDOW), 50)
     say(f"phase times: scan with an empty delta {scan_empty_ms:.4f} ms; scan_batch "
         f"{scans_empty:.0f} scans/s (empty delta), {scans_live:.0f} scans/s (live delta)")
 
-    # 13. where one get_batch's time goes: each stage alone, a sync after it
+    # 14. where one get_batch's time goes: each stage alone, a sync after it
     q = batches[1]
     split = {}
 

@@ -176,17 +176,17 @@ class LITSBuilder:
         ql = np.minimum(lens, self.width).astype(np.int32)
         return torch.from_numpy(qb).to(self.device), torch.from_numpy(ql).to(self.device)
 
-    def _values(self, bytes_mat: np.ndarray, lens: np.ndarray, start: int) -> np.ndarray:
+    def _values(self, qb: torch.Tensor, ql: torch.Tensor, start: int) -> np.ndarray:
+        """Model values of the device rows ``(qb, ql)`` from character ``start``."""
         cdf_tab, prob_tab = self._dev_tables()
-        qb, ql = self._query_rows(bytes_mat, lens)
         return get_cdf(cdf_tab, prob_tab, qb, ql, start).cpu().numpy()
 
     def _positions(
-        self, bytes_mat: np.ndarray, lens: np.ndarray, start: int,
+        self, qb: torch.Tensor, ql: torch.Tensor, start: int,
         alpha: float, beta: float, m: int,
     ) -> np.ndarray:
+        """Slot positions of the device rows ``(qb, ql)`` in a node of ``m`` slots."""
         cdf_tab, prob_tab = self._dev_tables()
-        qb, ql = self._query_rows(bytes_mat, lens)
         return positions(cdf_tab, prob_tab, qb, ql, start, alpha, beta, m).cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -263,14 +263,15 @@ class LITSBuilder:
         n = len(eids)
         pl = group_cpl(StringSet(bytes_mat, lens))
         pl = min(pl, self.width - 1)
-        v = self._values(bytes_mat, lens, pl).astype(np.float64)
+        qb, ql = self._query_rows(bytes_mat, lens)  # one copy to the device for both calls
+        v = self._values(qb, ql, pl).astype(np.float64)
         vmin, vmax = float(v.min()), float(v.max())
         if not (vmax > vmin):  # model cannot split this group -> trie (strengthened 50% rule)
             return self._build_trie(eids, bytes_mat, lens)
         m = int(np.clip(int(self.cfg.slots_factor * n), self.cfg.min_slots, self.cfg.max_slots))
         alpha = np.float32((m - 3) / (vmax - vmin))
         beta = np.float32(1.0 - float(alpha) * vmin)
-        pos = self._positions(bytes_mat, lens, pl, float(alpha), float(beta), m)
+        pos = self._positions(qb, ql, pl, float(alpha), float(beta), m)
         self.max_suffix_len = max(self.max_suffix_len, int((lens - pl).max()))
         base = self.items.extend(np.zeros(m, np.int32))
         nid = self.mn_slot_base.append(base)

@@ -2,8 +2,15 @@
 plain versions.
 
 K2 replaces ``repro/kernels/hpt_cdf.py::_cdf_kernel_gather``.  The kernel is
-``csrc/hpt_cdf.cu``: one thread per query walks its suffix, reading the two
-HPT tables from device memory.  The plain version is the reference
+``csrc/hpt_cdf.cu``: a group of 8 lanes walks each query
+(``csrc/lits_cdf_group.cuh``).  The lanes load the row's bytes in one
+coalesced pass, fold the FNV-1a states from bytes they shuffle among
+themselves, issue every table read of the walk at once, and then run the
+sum in the reference's step order, so a launch costs a few dependent round
+trips instead of two per step.  Its bound is bytes (the row, three
+per-query words, two table floats per active step); at the bulk load's
+launch shapes a third of the time is the launch itself, and at 65,536 rows
+the rate of scattered table reads sets the pace.  The plain version is the reference
 ``get_cdf_impl`` in tensor ops.
 
 K7 replaces ``_cdf_kernel_onehot``, the same walk with each table value

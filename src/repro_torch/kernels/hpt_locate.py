@@ -4,8 +4,11 @@ Replaces ``repro/kernels/hpt_locate.py::_locate_kernel``:
 
     pos = clip(floor(fma(alpha, GetCDF(s + start), beta)), 1, nslots - 2)
 
-The kernel is ``csrc/hpt_locate.cu``; the same ``__device__`` locate runs
-inside K4's model-node step.  The reference contracts ``alpha * cdf + beta``
+The kernel is ``csrc/hpt_locate.cu``: K2's walk with a group of 8 lanes per
+query (``csrc/lits_cdf_group.cuh``), then the locate in the lane that holds
+the sum; its bound is bytes, as K2's.  K4 runs the same ``__device__``
+locate after its own GetCDF, one thread per query, inside its model-node
+step.  The reference contracts ``alpha * cdf + beta``
 to one fused multiply-add, so the plain version emulates a float32 FMA
 exactly (:func:`fma_f32`).  The float-to-int conversion saturates and maps
 NaN to 0, as XLA's and CUDA's ``cvt.rmi.s32.f32`` do.

@@ -2,6 +2,7 @@
 from a seed so that both packages get the same arrays."""
 from __future__ import annotations
 
+import functools
 from fractions import Fraction
 
 import numpy as np
@@ -98,3 +99,63 @@ def scan_entries(ti, eids, valid, is_delta):
              for e, ok, d, v in zip(er, vr, dr, xr) if ok]
             for er, vr, dr, xr in zip(eids.tolist(), valid.tolist(), is_delta.tolist(),
                                       vals.tolist())]
+
+
+# Batch sizes at which a group of G lanes per query can go wrong: one
+# query, part of a warp or block, one past, and a full batch.
+CDF_GROUP_BATCHES = (1, 7, 28, 31, 32, 33, 255, 256, 257, 65536)
+CDF_TABLES = ("hpt", "uniform1", "cols256", "ties", "clamped")
+
+
+@functools.lru_cache(maxsize=None)
+def edge_cdf_rows(L: int, table: str, n: int = 65536):
+    """``n`` GetCDF/locate rows of width ``L`` whose row ``i`` is of kind
+    ``i % 6`` (so every prefix of more than 5 rows holds every kind):
+    qlen 0; start >= qlen; qlen > start + 64; the over-width sentinel
+    ``L + 1`` with a start that walks past the row's end; and two random
+    kinds.  ``table`` picks the HPT: ``hpt`` (1024 x 128, built from the
+    rows), ``uniform1`` (one uniform row), ``cols256`` (1024 x 256, rows
+    with any byte), ``clamped`` (1024 x 128, rows with any byte, so that
+    the walk hashes and reads characters clamped to 127) or ``ties`` (the
+    one-row table of :func:`tie_table`, every row a length-1 query of the
+    FMA-tie or saturation cases, with their alpha and beta).  Returns numpy
+    ``(qb, ql, st, cdf_tab, prob_tab, alpha, beta, nslots)``."""
+    from repro_torch.core.hpt import build_hpt, uniform_hpt
+
+    rng = np.random.default_rng(1000 * L + CDF_TABLES.index(table))
+    if table == "ties":
+        cases = [np.concatenate(a) for a in zip(tie_cases(), saturation_cases())]
+        cdf_tab, prob_tab, qb1, ql1 = tie_table(cases[0])
+        pick = np.arange(n) % cases[0].shape[0]
+        qb = np.zeros((n, L), np.uint8)
+        qb[:, 0] = qb1[pick, 0]
+        return (qb, ql1[pick].copy(), np.zeros(n, np.int32), cdf_tab, prob_tab,
+                cases[1][pick].copy(), cases[2][pick].copy(), np.full(n, 1 << 30, np.int32))
+    top = 128 if table == "hpt" else 256  # bytes past a 128-column table clamp to C - 1
+    qb = rng.integers(1, top, (n, L)).astype(np.uint8)
+    kind = np.arange(n) % 6
+    st = rng.integers(0, 8, n)
+    ql = rng.integers(1, L + 1, n)
+    ql[kind == 0] = 0
+    few = kind == 1
+    ql[few] = rng.integers(0, 8, few.sum())
+    st[few] = ql[few] + rng.integers(0, 4, few.sum())
+    far = kind == 2
+    ql[far] = rng.integers(st[far] + 65, L + 2)
+    over = kind == 3
+    ql[over] = L + 1
+    st[over] = rng.integers(0, 40, over.sum())
+    late = kind == 5
+    st[late] = rng.integers(0, L, late.sum())
+    cols = np.arange(L)[None, :]
+    qb = np.where(cols < ql[:, None], qb, 0).astype(np.uint8)  # zero padded, as pad_queries
+    if table == "uniform1":
+        hpt = uniform_hpt(1, 128)
+    else:
+        C = 256 if table == "cols256" else 128
+        sample = StringSet(np.minimum(qb[:4000], C - 1),
+                           np.minimum(ql[:4000], L).astype(np.int32))
+        hpt = build_hpt(sample, rows=1024, cols=C)
+    return (qb, ql.astype(np.int32), st.astype(np.int32), hpt.cdf_tab, hpt.prob_tab,
+            rng.uniform(1, 5e5, n).astype(np.float32), rng.uniform(-4, 4, n).astype(np.float32),
+            rng.integers(8, 1 << 20, n).astype(np.int32))

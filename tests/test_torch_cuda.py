@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import query_rows, saturation_cases, tie_cases, tie_table
+from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, edge_cdf_rows, query_rows,
+                          saturation_cases, tie_cases, tie_table)
 from repro_torch.core.strings import StringSet
 from repro_torch.core.builder import LITSBuilder
 from repro_torch.core.tensor_index import DATA_FIELDS, freeze, pad_queries
@@ -73,6 +74,29 @@ def test_cuda_hpt_locate_edge_cases(cuda, cases):
     assert torch.equal(out, hpt_locate.hpt_locate_plain(*args))
     if cases is tie_cases:  # the fused multiply-add lands past the midpoint
         assert (out.cpu().numpy() != np.floor(beta).astype(np.int32)).sum() >= 4
+
+
+@pytest.mark.parametrize("table", CDF_TABLES)
+@pytest.mark.parametrize("L,max_steps", [(94, 64), (96, 64), (94, 5), (96, 5)])
+@pytest.mark.parametrize("B", CDF_GROUP_BATCHES)
+def test_cuda_group_cdf_and_locate_match_plain(cuda, B, L, max_steps, table):
+    """K2 and K1 (G lanes per query) equal their plain versions at batch
+    sizes around a warp and a block, on rows with qlen 0, start >= qlen,
+    qlen > start + 64 and the over-width sentinel, with a built, a one-row
+    uniform, a 256-column table and a 1024 x 128 table fed bytes above 127,
+    and on the FMA-tie and saturation cases."""
+    qb, ql, st, ct, pt, alpha, beta, ns = edge_cdf_rows(L, table)
+    qb, ql, st, alpha, beta, ns = _dev(cuda, *(a[:B] for a in (qb, ql, st, alpha, beta, ns)))
+    ct, pt = _dev(cuda, ct, pt)
+    before = dict(_build.LAUNCHES)
+    cdf = hpt_cdf.hpt_cdf_cuda(qb, ql, st, ct, pt, max_steps)
+    pos = hpt_locate.hpt_locate_cuda(qb, ql, st, alpha, beta, ns, ct, pt, max_steps)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["hpt_cdf"] == before["hpt_cdf"] + 1
+    assert _build.LAUNCHES["hpt_locate"] == before["hpt_locate"] + 1
+    assert torch.equal(cdf, hpt_cdf.hpt_cdf_plain(qb, ql, st, ct, pt, max_steps))
+    assert torch.equal(pos, hpt_locate.hpt_locate_plain(qb, ql, st, alpha, beta, ns, ct, pt,
+                                                        max_steps))
 
 
 def test_cuda_wrappers_reject_bad_input(cuda):

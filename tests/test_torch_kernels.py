@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import exact_fma_f32, query_rows, saturation_cases, tie_cases, tie_table
+from _torch_cases import (CDF_TABLES, edge_cdf_rows, exact_fma_f32, query_rows,
+                          saturation_cases, tie_cases, tie_table)
 from repro.core.hpt import get_cdf_jnp, positions_jnp
 from repro.kernels import ref as r_ref
 from repro.kernels.cnode_probe import cnode_probe_pallas
@@ -111,6 +112,29 @@ def test_positions_saturate_like_xla():
     want = np.asarray(positions_jnp(*[jnp.asarray(x) for x in (ct, pt, qb, ql, st, alpha, beta, ns)]))
     got = t_hpt.positions(*[torch.from_numpy(x) for x in (ct, pt, qb, ql, st, alpha, beta, ns)])
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("table", CDF_TABLES)
+@pytest.mark.parametrize("L,max_steps", [(94, 64), (96, 64), (94, 5), (96, 5)])
+def test_cdf_edge_rows_equal_reference(L, max_steps, table):
+    """The plain GetCDF and locate, which the card's K2/K1 are held to
+    (test_torch_cuda.py), equal the reference on the same edge rows: qlen 0,
+    start >= qlen, qlen > start + 64, the over-width sentinel, a one-row
+    uniform, a 256-column table and a 1024 x 128 table fed bytes above
+    127, the FMA-tie and saturation cases."""
+    arrays = edge_cdf_rows(L, table)  # qb, ql, st, cdf_tab, prob_tab, alpha, beta, nslots
+    J = [jnp.asarray(x) for x in arrays]
+    want_cdf = np.asarray(get_cdf_jnp(J[3], J[4], J[0], J[1], J[2], max_steps=max_steps))
+    want_pos = np.asarray(positions_jnp(J[3], J[4], J[0], J[1], J[2], J[5], J[6], J[7],
+                                        max_steps=max_steps))
+    T = [torch.from_numpy(x) for x in arrays]
+    got_cdf = t_hpt.get_cdf(T[3], T[4], T[0], T[1], T[2], max_steps=max_steps).numpy()
+    got_pos = t_hpt.positions(T[3], T[4], T[0], T[1], T[2], T[5], T[6], T[7],
+                              max_steps=max_steps).numpy()
+    np.testing.assert_array_equal(got_cdf, want_cdf)
+    np.testing.assert_array_equal(got_pos, want_pos)
+    if table != "ties":
+        assert (got_cdf == 0).any() and (got_cdf > 0).any()
 
 
 @pytest.mark.parametrize("K", [8, 16, 32])
