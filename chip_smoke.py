@@ -618,7 +618,11 @@ def main() -> int:
     launches_live, scans_live, _ = range_pass(
         index, scan_batches, Oracle(scan_view(set(touched)), index.ti), "live delta",
         with_rank=False)
+    scan_empty_launches = range_launches["scan"]
     range_launches["scan"] += launches_live["scan"]
+    # K7 on the entry points' paths: no entry point selects variant="onehot"
+    onehot_path_launches = sum(d["hpt_cdf_onehot"] for d in (
+        main_launches, write_launches, range_launches, launches_live))
     del cpu_index
 
     # 9. one-hot GetCDF path: ops.hpt_cdf(variant="onehot") launches K7, never K2
@@ -681,12 +685,13 @@ def main() -> int:
 
     sqb, sql = index._queries(first)
     k5 = rank.fused_rank_cuda(ti0, sqb, sql)
-    rank_trace, scan_trace = [], {}
+    rank_trace, scan_trace, scan_empty_trace = [], {}, {}
     results["rank"] = ((k5,), (rank.fused_rank_plain(ti0, sqb, sql, trace=rank_trace),))
     results["rank (range path) == bisect"] = (
         (ranks0[::32].cpu(), k5[::32].cpu()), (torch.from_numpy(want_rank),) * 2)
     inputs["rank"] = ((ti0, sqb, sql), rank.fused_rank_cuda, rank.fused_rank_plain)
-    for label, t_i, tr in (("scan, empty delta", ti0, None), ("scan", index.ti, scan_trace)):
+    for label, t_i, tr in (("scan, empty delta", ti0, scan_empty_trace),
+                           ("scan", index.ti, scan_trace)):
         results[label] = (scan.fused_scan_cuda(t_i, sqb, sql, window=WINDOW),
                           scan.fused_scan_plain(t_i, sqb, sql, window=WINDOW, trace=tr))
     inputs["scan"] = ((index.ti, sqb, sql), lambda *a: scan.fused_scan_cuda(*a, window=WINDOW),
@@ -788,6 +793,13 @@ def main() -> int:
         delta.read(de, both, d_need, flag=False)
         delta.read(de, took, flag=True)
     nbytes["scan"] = B * (W + 4) + B * WINDOW * 6 + base.total() + delta.total()
+    # scan, empty delta: query rows in, windows out, what the frozen rank
+    # must read, and the order word of each entry the window gathers
+    base = PoolReads(ti0.ent_sorted, ti0.ent_off, ti0.ent_len, ti0.key_bytes)
+    base.ranked(sqb, sql, scan_empty_trace["base"])
+    empty_eids, empty_valid, _ = results["scan, empty delta"][0]
+    base.read(empty_eids.flatten(), empty_valid.flatten())
+    scan_empty_bytes = B * (W + 4) + B * WINDOW * 6 + base.total()
     # K7 computes K2's function: its bound is K2's; the one-hot sweep's
     # (4R + 3) float operations per step are how K7 works, not what it needs
     flops = {"fused_search": 0.0, "hpt_cdf": cdf_flops, "hpt_locate": locate_flops,
@@ -796,7 +808,7 @@ def main() -> int:
         f"float ops ({R} rows per step); its bound counts K2's {3.0 * n_steps:.0f}")
     launches = dict(main_launches)
     launches.update(rank=range_launches["rank"], scan=range_launches["scan"],
-                    hpt_cdf_onehot=onehot_launches["hpt_cdf_onehot"])
+                    hpt_cdf_onehot=onehot_path_launches)
     reps = {"hpt_cdf_onehot": 10}
     rows = []
     for name, (src, replaces) in KERNELS.items():
@@ -823,9 +835,24 @@ def main() -> int:
     one_row_ms = kernel_ms(lambda: hpt_cdf.hpt_cdf_cuda(*one_row), 50)
     next(r for r in rows if r["name"] == "hpt_cdf")["one_row_table_ms"] = one_row_ms
     say(f"phase times: hpt_cdf with a one-row table (every table read from L1) {one_row_ms:.4f} ms")
+    onehot_row = next(r for r in rows if r["name"] == "hpt_cdf_onehot")
+    onehot_row["script_launches"] = onehot_launches["hpt_cdf_onehot"]
+    say(f"phase times: hpt_cdf_onehot: {onehot_path_launches} launches from the entry points "
+        f"(none selects variant='onehot'); the onehot phase's "
+        f"{onehot_launches['hpt_cdf_onehot']} is this script's own call of ops.hpt_cdf")
     scan_empty_ms = kernel_ms(lambda: scan.fused_scan_cuda(ti0, sqb, sql, window=WINDOW), 50)
-    say(f"phase times: scan with an empty delta {scan_empty_ms:.4f} ms; scan_batch "
-        f"{scans_empty:.0f} scans/s (empty delta), {scans_live:.0f} scans/s (live delta)")
+    scan_empty_plain_ms = time_cuda(
+        lambda: scan.fused_scan_plain(ti0, sqb, sql, window=WINDOW), reps=3, warmup=1)
+    se_ms, se_by = bound_ms(scan_empty_bytes)
+    next(r for r in rows if r["name"] == "scan")["scan_empty"] = {
+        "launches": scan_empty_launches, "ms": scan_empty_ms, "plain_ms": scan_empty_plain_ms,
+        "bound_ms": se_ms, "bound_by": se_by,
+        "max_abs_err": max_abs_err(*results["scan, empty delta"])}
+    say(f"phase times: scan with an empty delta {scan_empty_ms:.4f} ms (plain "
+        f"{scan_empty_plain_ms:.2f} ms, bound {se_ms:.5f} ms by {se_by}, {scan_empty_bytes} "
+        f"bytes), path launches {scan_empty_launches}; the scan row above is the live delta's; "
+        f"scan_batch {scans_empty:.0f} scans/s (empty delta), {scans_live:.0f} scans/s "
+        "(live delta)")
 
     # 14. where one get_batch's time goes: each stage alone, a sync after it
     q = batches[1]

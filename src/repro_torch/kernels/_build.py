@@ -23,8 +23,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import weakref
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 import torch
 
@@ -41,6 +42,8 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in (
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# (kind, id of the first source) -> (weak refs to the sources, their versions, table)
+_DERIVED: Dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
@@ -146,6 +149,25 @@ def launch(lib_name: str, fn_name: str, argtypes, *args) -> None:
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
+
+
+def derived(kind: str, sources: Sequence[torch.Tensor],
+            make: Callable[..., torch.Tensor]) -> torch.Tensor:
+    """``make(*sources)``: a table a kernel reads in place of its sources,
+    made once per set of source tensors and kept while the first of them
+    lives.  It is made again when a source is another tensor or has been
+    written in place (a new tensor version), so it is never stale.  It is
+    derived state: no field of the index and no part of a snapshot."""
+    key = (kind, id(sources[0]))
+    versions = tuple(t._version for t in sources)
+    hit = _DERIVED.get(key)
+    if hit is not None and hit[1] == versions and all(
+            ref() is t for ref, t in zip(hit[0], sources)):
+        return hit[2]
+    table = make(*sources)
+    refs = [weakref.ref(sources[0], lambda _ref: _DERIVED.pop(key, None))]
+    _DERIVED[key] = (refs + [weakref.ref(t) for t in sources[1:]], versions, table)
+    return table
 
 
 def as_rows(v, B: int, dtype, device) -> torch.Tensor:

@@ -3,7 +3,7 @@
 // Replaces repro/kernels/hpt_locate.py::_locate_kernel:
 //   pos = clip(floor(fma(alpha, GetCDF(s + start), beta)), 1, nslots - 2)
 // The builder launches this entry once per model node to place that node's
-// keys; K4 runs lits::hpt_cdf + lits::locate inline, one thread per query,
+// keys; K4 runs lits::cdf_row + lits::locate inline, one thread per query,
 // at every model-node step of a lookup.
 //
 // Bound: bytes, as K2 (the query row, five per-query scalars in and one

@@ -1,6 +1,7 @@
 // GetCDF (paper Alg. 1) with G = kCdfGroup lanes per query, for the
 // standalone GetCDF (K2, hpt_cdf.cu) and locate (K1, hpt_locate.cu) kernels.
-// K4 keeps lits::hpt_cdf, one thread per query, inline in its walk.
+// K4 keeps one thread per query for its GetCDF steps (lits_words.cuh,
+// cdf_row), inline in its walk.
 //
 // One thread per query pays two dependent round trips per step: the step's
 // byte, then the two table floats the byte and the hash select.  Here the

@@ -2,27 +2,38 @@
 //
 // Replaces repro/kernels/traverse.py::_fused_kernel.  One thread walks one
 // query from the root item to a terminal item and resolves it:
-//   * model node: compare the node prefix, then lits::hpt_cdf + lits::locate
-//     (K1's arithmetic) from the end of the prefix, then read the slot item;
+//   * model node: compare the node prefix, then GetCDF + lits::locate (K1's
+//     arithmetic) from the end of the prefix, then read the slot item;
 //   * critbit node: test one bit of one query byte;
 //   * the walk stops at the first terminal item or after max_iters steps,
 //     which gives the same item and level count as the reference's
 //     batch-wide loop;
 //   * ENTRY: exact string equality; CNODE: lits::probe (K3's probe) over the
-//     node's h-pointers, str_eq on a hash match, probing again from idx + 1
-//     after a false 16-bit match.
+//     node's h-pointers, string equality on a hash match, probing again from
+//     idx + 1 after a false 16-bit match.
 //
-// The TPU kernel pinned every pool whole in VMEM through (1, N) blocks.  The
-// pools of a real index are tens of MB and the HPT pair alone is 1 MB, more
-// than a block's 227 KB of shared memory, so on Hopper the pools stay in
-// device memory and are read through __ldg; the upper levels and the hot
-// HPT rows stay in the 50 MB L2.
+// The TPU kernel pinned every pool whole in VMEM.  The pools of a real index
+// are tens of MB, more than a block's 227 KB of shared memory, so on Hopper
+// they stay in device memory behind __ldg and the 50 MB L2.
 //
-// Bound: bytes.  A lookup is a chain of dependent reads (item -> node ->
-// slot -> ...), each of a few bytes, with little arithmetic between them;
-// the design hides their latency with many threads in flight (256-thread
-// blocks, one query each) rather than with wide loads.
-#include "lits_walk.cuh"
+// Bound: bytes, and in practice the latency of dependent reads: item ->
+// node -> prefix and HPT steps -> slot item -> ..., a few bytes each.  What
+// the design does about it (lits_words.cuh):
+//   * the block's query rows are staged once in shared memory with
+//     coalesced 16-byte loads; every query byte (prefix compare, GetCDF,
+//     critbit byte, hash, equality) comes from there, never from a strided
+//     global row;
+//   * the prefix compare and the ENTRY/CNODE equality read the key as
+//     16-byte chunks, all of a 96-byte key in one round trip for equality,
+//     and compare four bytes at a time; equality stops at the key's length;
+//   * GetCDF reads the (cdf, prob) pair of a step as one float2 of the
+//     interleaved table, and since a step's table index depends only on
+//     the query's bytes, the reads of 8 steps are in flight together before
+//     the sum runs over them in step order.
+// Measured with chip_smoke.py (H100 80GB HBM3, 700 W; 65,536 queries of
+// the 1M-key url index, PERF.md): 0.1414 ms before this design, 0.0665 ms
+// with it, most of the gain from the interleaved table.
+#include "lits_words.cuh"
 
 struct LitsPools {
   const int* root_item;
@@ -51,23 +62,29 @@ struct LitsPools {
   const int* ent_off;
   const int* ent_len;
   long long n_ent;
-  const float* cdf_tab;
-  const float* prob_tab;
+  const float2* cp_tab;  // (R, C) pairs (cdf_tab, prob_tab), interleaved
   long long R;
   long long C;
 };
 
 namespace {
 
+constexpr int kPrefixChunks = 2;  // 32 key bytes per round trip: most prefixes differ early
+constexpr int kEqChunks = 6;      // 96 key bytes per round trip: an equality reads the whole key
+
 __global__ void __launch_bounds__(lits::kBlock)
 fused_search_kernel(const LitsPools p, const uint8_t* __restrict__ q,
-                    const int* __restrict__ qlens, int B, int W, int max_iters,
+                    const int* __restrict__ qlens, int B, int W, int S, int max_iters,
                     int cnode_cap, int cdf_steps, int* __restrict__ found,
                     int* __restrict__ eid, int* __restrict__ levels) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const uint8_t* qr = q + static_cast<long long>(b) * W;
-  const int qlen = qlens[b];
+  extern __shared__ uint32_t stage[];
+  const long long r0 = static_cast<long long>(blockIdx.x) * blockDim.x;
+  lits::stage_rows(q, B, W, r0, blockDim.x, stage, S);
+  const long long b = r0 + threadIdx.x;
+  if (b >= B) return;  // no barrier follows
+  const uint32_t* row = stage + threadIdx.x * S;
+  const uint8_t* qb = reinterpret_cast<const uint8_t*>(row);
+  const int qlen = __ldg(qlens + b);
   const int steps = min(cdf_steps, W);
   const int R = static_cast<int>(p.R);
   const int C = static_cast<int>(p.C);
@@ -80,15 +97,15 @@ fused_search_kernel(const LitsPools p, const uint8_t* __restrict__ q,
       const long long nid = min(static_cast<long long>(pay), p.n_mn - 1);
       const int pl = __ldg(p.mn_prefix_len + nid);
       const int m = __ldg(p.mn_slot_cnt + nid);
-      const int cmp = lits::str_cmp_prefix(qr, W, p.key_bytes, p.n_key,
-                                           __ldg(p.mn_prefix_off + nid), pl);
+      const int cmp = lits::cmp_row_prefix<kPrefixChunks>(row, W, p.key_bytes, p.n_key,
+                                                          __ldg(p.mn_prefix_off + nid), pl);
       int pos;
       if (cmp < 0) {
         pos = 0;
       } else if (cmp > 0) {
         pos = m - 1;
       } else {
-        const float cdf = lits::hpt_cdf(qr, W, qlen, pl, p.cdf_tab, p.prob_tab, R, C, steps);
+        const float cdf = lits::cdf_row(qb, W, qlen, pl, p.cp_tab, R, C, steps);
         pos = lits::locate(cdf, __ldg(p.mn_alpha + nid), __ldg(p.mn_beta + nid), m);
       }
       item = __ldg(p.items + lits::clamp_index(
@@ -97,7 +114,7 @@ fused_search_kernel(const LitsPools p, const uint8_t* __restrict__ q,
     } else if (tag == lits::kTagTrie) {
       const long long tid = min(static_cast<long long>(pay), p.n_tr - 1);
       const int cb = __ldg(p.tr_byte + tid);
-      const int qc = cb < min(qlen, W) ? __ldg(qr + min(max(cb, 0), W - 1)) : 0;
+      const int qc = cb < min(qlen, W) ? qb[min(max(cb, 0), W - 1)] : 0;
       item = (qc & __ldg(p.tr_mask + tid)) ? __ldg(p.tr_right + tid) : __ldg(p.tr_left + tid);
     } else {
       break;
@@ -110,8 +127,8 @@ fused_search_kernel(const LitsPools p, const uint8_t* __restrict__ q,
   int e = -1;
   if (tag == lits::kTagEntry) {
     const long long id = min(static_cast<long long>(pay), p.n_ent - 1);
-    if (lits::str_eq(qr, W, qlen, p.key_bytes, p.n_key, __ldg(p.ent_off + id),
-                     __ldg(p.ent_len + id))) {
+    if (lits::eq_row_key<kEqChunks>(row, W, qlen, lits::row_extent(row, S), p.key_bytes,
+                                    p.n_key, __ldg(p.ent_off + id), __ldg(p.ent_len + id))) {
       f = 1;
       e = static_cast<int>(id);
     }
@@ -119,13 +136,14 @@ fused_search_kernel(const LitsPools p, const uint8_t* __restrict__ q,
     const long long cid = min(static_cast<long long>(pay), p.n_cn - 1);
     const long long base = __ldg(p.cn_base + cid);
     const int cnt = __ldg(p.cn_cnt + cid);
-    const int qh = lits::hash16(qr, W, qlen);
+    const int qh = lits::hash16_row(row, W, qlen);
+    const int qext = lits::row_extent(row, S);
     for (int j = lits::probe(p.ch_hash, base, p.n_ch, qh, cnt, 0, cnode_cap); j >= 0;
          j = lits::probe(p.ch_hash, base, p.n_ch, qh, cnt, j + 1, cnode_cap)) {
       const int cand = __ldg(p.ch_ent + lits::clamp_index(base + j, p.n_ch));
       const long long ce = lits::clamp_index(cand, p.n_ent);
-      if (lits::str_eq(qr, W, qlen, p.key_bytes, p.n_key, __ldg(p.ent_off + ce),
-                       __ldg(p.ent_len + ce))) {
+      if (lits::eq_row_key<kEqChunks>(row, W, qlen, qext, p.key_bytes, p.n_key,
+                                      __ldg(p.ent_off + ce), __ldg(p.ent_len + ce))) {
         f = 1;
         e = cand;
         break;
@@ -139,11 +157,17 @@ fused_search_kernel(const LitsPools p, const uint8_t* __restrict__ q,
 
 }  // namespace
 
+// Rows per block: kBlock, fewer for rows so wide that the stage would pass
+// the 48 KB of static shared memory (widths past 188 bytes).
 extern "C" int lits_fused_search(const LitsPools* pools, const uint8_t* q, const int* qlens,
                                  int B, int W, int max_iters, int cnode_cap, int cdf_steps,
                                  int* found, int* eid, int* levels, void* stream) {
-  const int grid = (B + lits::kBlock - 1) / lits::kBlock;
-  fused_search_kernel<<<grid, lits::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      *pools, q, qlens, B, W, max_iters, cnode_cap, cdf_steps, found, eid, levels);
+  const int S = lits::stage_stride(W);
+  int rows = lits::kBlock;
+  while (rows > 32 && static_cast<size_t>(rows) * S * 4 > 48 * 1024) rows /= 2;
+  const int grid = (B + rows - 1) / rows;
+  fused_search_kernel<<<grid, rows, static_cast<size_t>(rows) * S * 4,
+                        static_cast<cudaStream_t>(stream)>>>(
+      *pools, q, qlens, B, W, S, max_iters, cnode_cap, cdf_steps, found, eid, levels);
   return static_cast<int>(cudaGetLastError());
 }

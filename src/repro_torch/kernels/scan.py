@@ -1,9 +1,10 @@
 """K6: the delta-aware range scan — two ranks and a base/delta merge.
 
 Replaces ``repro/kernels/scan.py::_scan_kernel``.  The kernel is
-``csrc/scan.cu``: one thread per query ranks into the frozen order and the
-sorted delta view (K5's search) and merges the two streams into its window.
-The plain version is :func:`repro_torch.core.walk.scan_merged`.  Both return
+``csrc/scan.cu``: a group of lanes per query ranks into the frozen order and
+the sorted delta view with a multi-way search and merges the two streams
+into its window.  The plain version is
+:func:`repro_torch.core.walk.scan_merged`.  Both return
 ``(eids, valid, is_delta)``, each ``(B, window)``.
 """
 from __future__ import annotations
@@ -12,7 +13,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.walk import delta_rank_iters, scan_merged
+from repro_torch.core.walk import scan_merged
 
 from . import _build
 from .rank import check_order, check_queries
@@ -22,11 +23,24 @@ _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 class ScanPools(ctypes.Structure):
     """Field for field the ``ScanPools`` of ``csrc/scan.cu``."""
-    _fields_ = [("ent_sorted", _P), ("n_sorted", _N), ("ent_off", _P), ("ent_len", _P),
-                ("n_ent", _N), ("key_bytes", _P), ("n_key", _N), ("n_base", _P),
-                ("ds_order", _P), ("n_ds", _N), ("de_off", _P), ("de_len", _P),
-                ("de_tomb", _P), ("n_de", _N), ("db_bytes", _P), ("n_db", _N),
-                ("n_delta", _P)]
+    _fields_ = [("ent_sorted", _P), ("n_sorted", _N), ("base_rec", _P), ("key_bytes", _P),
+                ("n_key", _N), ("n_base", _P), ("delta_rec", _P), ("n_ds", _N),
+                ("db_bytes", _P), ("n_db", _N), ("n_delta", _P)]
+
+
+def order_records(order, off, ln, tomb=None) -> torch.Tensor:
+    """(n, 4) int32: per rank r of a sorted order, the entry id
+    ``order[r]``, its key's offset and length and its tombstone flag (0
+    without ``tomb``), so that a search step or a merge head reads them in
+    one 16-byte load.  The entry index is clamped into the tables, as the
+    reference's gathers clip.  Kept by :func:`_build.derived`."""
+    def make(order, off, ln, *tomb):
+        e = order.long().clamp(0, off.shape[0] - 1)
+        flag = tomb[0][e].to(torch.int32) if tomb else torch.zeros_like(order)
+        return torch.stack([order, off[e], ln[e], flag], dim=1).contiguous()
+
+    return _build.derived("order_records", (order, off, ln) + ((tomb,) if tomb is not None
+                                                               else ()), make)
 
 
 def scan_n_base(ti) -> torch.Tensor:
@@ -47,12 +61,17 @@ def fused_scan_cuda(ti, qbytes, qlens, *, window: int):
     check_order(dso, doff, dln, dpool, dev)
     _build.check(ti.de_tomb, "de_tomb", torch.bool, doff.shape, dev)
     _build.check(ti.de_count, "de_count", torch.int32, (), dev)
+    if ti.rank_iters < srt.shape[0].bit_length():
+        # the kernel's search returns the lower bound, as a halving search
+        # of at least ceil(log2(n + 1)) steps does; fewer steps stop short
+        raise ValueError(f"rank_iters {ti.rank_iters} is too few for {srt.shape[0]} sorted rows")
     n_base = scan_n_base(ti)
-    pools = ScanPools(ent_sorted=srt.data_ptr(), n_sorted=srt.shape[0], ent_off=off.data_ptr(),
-                      ent_len=ln.data_ptr(), n_ent=off.shape[0], key_bytes=pool.data_ptr(),
-                      n_key=pool.shape[0], n_base=n_base.data_ptr(), ds_order=dso.data_ptr(),
-                      n_ds=dso.shape[0], de_off=doff.data_ptr(), de_len=dln.data_ptr(),
-                      de_tomb=ti.de_tomb.data_ptr(), n_de=doff.shape[0],
+    base_rec = order_records(srt, off, ln)
+    delta_rec = order_records(dso, doff, dln, ti.de_tomb)
+    pools = ScanPools(ent_sorted=srt.data_ptr(), n_sorted=srt.shape[0],
+                      base_rec=base_rec.data_ptr(), key_bytes=pool.data_ptr(),
+                      n_key=pool.shape[0], n_base=n_base.data_ptr(),
+                      delta_rec=delta_rec.data_ptr(), n_ds=dso.shape[0],
                       db_bytes=dpool.data_ptr(), n_db=dpool.shape[0],
                       n_delta=ti.de_count.data_ptr())
     eids = torch.empty((B, window), dtype=torch.int32, device=dev)
@@ -60,10 +79,9 @@ def fused_scan_cuda(ti, qbytes, qlens, *, window: int):
     is_delta = torch.empty((B, window), dtype=torch.bool, device=dev)
     if B:
         _build.launch("scan", "lits_scan",
-                      [ctypes.POINTER(ScanPools), _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+                      [ctypes.POINTER(ScanPools), _P, _P, _I, _I, _I, _P, _P, _P],
                       ctypes.byref(pools), qbytes.data_ptr(), qlens.data_ptr(), B, W, window,
-                      ti.rank_iters, delta_rank_iters(dso.shape[0]), eids.data_ptr(),
-                      valid.data_ptr(), is_delta.data_ptr())
+                      eids.data_ptr(), valid.data_ptr(), is_delta.data_ptr())
         _build.LAUNCHES["scan"] += 1
     return eids, valid, is_delta
 

@@ -2,8 +2,10 @@
 
 Replaces ``repro/kernels/traverse.py::_fused_kernel``.  The kernel is
 ``csrc/traverse.cu``: one thread walks one query to its terminal item and
-resolves it, with K1's locate and K3's probe inline.  The plain version is
-:func:`repro_torch.core.walk.walk_terminal` + ``resolve_terminal``.  Both
+resolves it, with K1's locate and K3's probe inline; it reads the HPT as
+one interleaved (cdf, prob) table (:func:`paired_table`).  The plain
+version is :func:`repro_torch.core.walk.walk_terminal` +
+``resolve_terminal``.  Both
 return ``(found, eid, levels)``; the delta-buffer probe stays outside, as
 in the reference.
 """
@@ -39,7 +41,15 @@ class LitsPools(ctypes.Structure):
     _fields_ = ([("root_item", _P)]
                 + [f for n, group in _POOL_GROUPS
                    for f in [(name, _P) for name, _ in group] + [(n, _N)]]
-                + [("cdf_tab", _P), ("prob_tab", _P), ("R", _N), ("C", _N)])
+                + [("cp_tab", _P), ("R", _N), ("C", _N)])
+
+
+def paired_table(cdf_tab: torch.Tensor, prob_tab: torch.Tensor) -> torch.Tensor:
+    """(R, C, 2) float32: ``cdf_tab`` and ``prob_tab`` interleaved, a
+    bit-exact copy, so that a GetCDF step reads its pair as one 8-byte load
+    (kept by :func:`_build.derived`)."""
+    return _build.derived("paired_table", (cdf_tab, prob_tab),
+                          lambda c, p: torch.stack([c, p], dim=-1).contiguous())
 
 
 def _pools(ti, dev) -> LitsPools:
@@ -60,8 +70,7 @@ def _pools(ti, dev) -> LitsPools:
     _build.check(ti.prob_tab, "prob_tab", torch.float32, (R, C), dev)
     if R & (R - 1):
         raise ValueError(f"HPT rows must be a power of two, got {R}")
-    return LitsPools(cdf_tab=ti.cdf_tab.data_ptr(), prob_tab=ti.prob_tab.data_ptr(),
-                     R=R, C=C, **kw)
+    return LitsPools(cp_tab=paired_table(ti.cdf_tab, ti.prob_tab).data_ptr(), R=R, C=C, **kw)
 
 
 def fused_search_cuda(ti, qbytes, qlens):

@@ -159,3 +159,112 @@ def edge_cdf_rows(L: int, table: str, n: int = 65536):
     return (qb, ql.astype(np.int32), st.astype(np.int32), hpt.cdf_tab, hpt.prob_tab,
             rng.uniform(1, 5e5, n).astype(np.float32), rng.uniform(-4, 4, n).astype(np.float32),
             rng.integers(8, 1 << 20, n).astype(np.int32))
+
+
+# Batch sizes at which staged query rows and lane groups can go wrong: one
+# query, a ragged warp, a block less one, a block, one past, a full batch.
+# The CPU runs the plain versions, which have no blocks, against the
+# reference: there a ragged batch of 4,097 stands in for the full one.
+WORD_BATCHES = (1, 31, 255, 256, 257, 65536)
+WORD_BATCHES_CPU = (1, 31, 255, 256, 257, 4097)
+WORD_WIDTH = 40
+WORD_WINDOW = 16
+
+
+def word_edge_case(width: int = WORD_WIDTH, seed: int = 0):
+    """Keys, writes and queries for the word-wide string compares of K4 and
+    K6, at index width ``width`` (>= 24).
+
+    The stored keys (NUL-free, as the builder demands) hold keys of length 1,
+    15, 16, 17 and ``width``, chains of proper prefixes, bytes >= 0x80 and a
+    long shared prefix, so that compares run many bytes deep; there are
+    enough of them that key offsets fall at every residue mod 16.  The
+    writes (``[("put" | "delete", keys)]``, in order) leave a delta view
+    with fresh keys between base keys, a key that equals a base key but for
+    a trailing zero byte, a run of more than ``WORD_WINDOW`` consecutive
+    base keys deleted (tombstones), delta-only keys deleted, and base keys
+    deleted then put again, whose live delta entries shadow them.
+
+    Returns ``(keys, writes, queries, starts)``: ``queries`` holds every
+    stored key, each with its last byte one up and one down, proper prefixes
+    both ways (a query that is a prefix of a key, a key that is a prefix of
+    the query), embedded zero bytes against the zero padding, the empty
+    query, width-long and over-width (``width + 1`` sentinel) queries;
+    ``starts`` adds the ``WORD_WINDOW + 4`` keys before each resurrected key
+    (so that it falls at every slot of a window, its edge included) and the
+    keys before the tombstone run."""
+    assert width >= 24
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ab/.\x01\x7f\x80\x81\xfe\xff", np.uint8)
+    stem = b"http://\x80\xffexample.org/"[: width // 2]
+
+    def word(n):
+        return alphabet[rng.integers(0, alphabet.shape[0], n)].tobytes()
+
+    keys = {stem + word(int(n)) for n in rng.integers(0, width - len(stem) + 1, 150)}
+    keys |= {word(int(n)) for n in rng.integers(1, width + 1, 150)}
+    longest = (stem + word(width))[:width]
+    keys |= {longest[:n] for n in (1, 2, 8, 15, 16, 17, 24, width - 1, width)}
+    keys |= {word(n) for n in (1, 15, 16, 17, width) for _ in range(3)}
+    keys = sorted(keys)
+
+    mid = len(keys) // 2
+    run = keys[mid: mid + WORD_WINDOW + 8]                # tombstones, longer than a window
+    back = [keys[i] for i in (mid // 2, mid // 2 + 40, len(keys) - 3)]  # resurrected
+    fresh = sorted({k + word(int(n)) for k, n in zip(keys[::7], rng.integers(1, 4, len(keys)))
+                    if len(k) + 3 <= width} - set(keys))
+    zero = [k + b"\x00" for k in keys[3::29] if len(k) < width]
+    writes = [("put", fresh + zero), ("delete", run + back + fresh[::5]),
+              ("put", back + fresh[1::5])]
+
+    def bump(k, d):
+        return k[:-1] + bytes([(k[-1] + d) % 256])
+
+    queries = list(keys)
+    queries += [bump(k, 1) for k in keys] + [bump(k, -1) for k in keys]
+    queries += [k[:-1] for k in keys if len(k) > 1] + [k[: len(k) // 2] for k in keys]
+    queries += [k + b"\x00" for k in keys[::3]] + [k + b"\x00\x00a" for k in keys[1::5]]
+    queries += [k + b"\x01" for k in keys[2::5]] + [k + b"\xff" for k in keys[::4]]
+    queries += [(k * width)[:width] for k in keys[::6]]
+    queries += [k + b"~" * (width + 1 - len(k)) for k in keys[::5]]
+    queries += [b"", b"\x00", b"\xff" * width, b"\xff" * (width + 1)] + fresh[::3] + zero
+    starts = list(queries) + [keys[mid - 1], run[0]]
+    for k in back:
+        i = keys.index(k)
+        starts += keys[max(0, i - WORD_WINDOW - 4): i + 1]
+    return keys, writes, queries, starts
+
+
+def word_rows(queries, n: int):
+    """The first ``n`` of ``queries`` repeated in turn."""
+    return [queries[i % len(queries)] for i in range(n)]
+
+
+def word_edge_indexes(index_cls, config_cls, builder_config_cls, width: int = WORD_WIDTH,
+                      **config):
+    """:func:`word_edge_case` bulk-loaded through a package's facade
+    (``StringIndex``, ``IndexConfig``, ``LITSConfig`` of either package):
+    ``(ti before the writes, ti after them)``.  The keys hold bytes >= 0x80,
+    so the HPT has 256 columns."""
+    keys, writes, _, _ = word_edge_case(width)
+    vals = np.arange(len(keys), dtype=np.int64) * 3 + 1
+    ix = index_cls.bulk_load(keys, vals, config_cls(
+        width=width, delta_capacity=256, builder=builder_config_cls(hpt_cols=256), **config))
+    empty = ix.ti
+    for i, (kind, batch) in enumerate(writes):
+        if kind == "put":
+            ix.put_batch(batch, np.arange(len(batch)) + 1000 * (i + 1))
+        else:
+            ix.delete_batch(batch)
+    return empty, ix.ti
+
+
+def trimmed(ti):
+    """``ti`` with its key pools cut to the bytes they use, so that the
+    aligned 16-byte chunks of the last keys pass the pools' ends (the byte
+    path of the word compares)."""
+    import dataclasses
+
+    n_key = ti.key_bytes.shape[0] - (ti.width + 1)
+    return dataclasses.replace(ti, key_bytes=ti.key_bytes[:n_key],
+                               db_bytes=ti.db_bytes[: max(int(ti.db_used), 1)])

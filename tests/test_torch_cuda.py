@@ -6,14 +6,17 @@ with its reason.  Run on the card with
 is exact throughout: a kernel that is off by one float32 ulp places a key
 in another slot.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, edge_cdf_rows, query_rows,
-                          saturation_cases, tie_cases, tie_table)
+from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, WORD_BATCHES, WORD_WINDOW,
+                          edge_cdf_rows, query_rows, saturation_cases, tie_cases, tie_table,
+                          trimmed, word_edge_case, word_edge_indexes, word_rows)
 from repro_torch.core.strings import StringSet
-from repro_torch.core.builder import LITSBuilder
+from repro_torch.core.builder import LITSBuilder, LITSConfig
 from repro_torch.core.tensor_index import DATA_FIELDS, freeze, pad_queries
 from repro_torch.data import synthetic
 from repro_torch.kernels import _build, cnode_probe, hpt_cdf, hpt_locate, traverse
@@ -254,3 +257,59 @@ def test_cuda_onehot_cdf_matches_plain_and_k2(cuda):
     assert torch.equal(via, got)
     assert _build.LAUNCHES["hpt_cdf_onehot"] == before["hpt_cdf_onehot"] + 1
     assert _build.LAUNCHES["hpt_cdf"] == before["hpt_cdf"]
+
+
+_WORD_INDEXES = {}
+
+
+def _word_indexes(width):
+    """The word-path edge case on the card: (empty delta, live delta)."""
+    if width not in _WORD_INDEXES:
+        from repro_torch.index import IndexConfig, StringIndex
+
+        _WORD_INDEXES[width] = word_edge_indexes(StringIndex, IndexConfig, LITSConfig, width,
+                                                 device="cuda")
+    return _WORD_INDEXES[width]
+
+
+def _shifted(t, by):
+    """A contiguous view of ``t`` whose data pointer is ``by`` bytes past a
+    16-byte boundary."""
+    flat = torch.cat([t.new_zeros(by), t.reshape(-1)])[by:]
+    return flat.view(t.shape)
+
+
+@pytest.mark.parametrize("pools", ["whole", "trimmed", "shifted"])
+@pytest.mark.parametrize("width", [40, 94, 200])
+@pytest.mark.parametrize("B", WORD_BATCHES)
+def test_cuda_word_edge_cases_match_plain(cuda, B, width, pools):
+    """K4 and K6 (staged rows, word compares, K6's multi-way rank and
+    merge) equal their plain versions on the word-path edge cases, at batch
+    sizes that leave ragged blocks and groups, with an empty and a live
+    delta, with whole key pools, with pools cut to their used bytes (the
+    last keys' chunks pass the end: the byte path) and with pools and query
+    rows whose data pointers are not 16-byte aligned."""
+    from repro_torch.kernels import scan
+
+    empty, live = _word_indexes(width)
+    _, _, queries, starts = word_edge_case(width)
+    for ti, rows in ((empty, queries), (live, queries), (empty, starts), (live, starts)):
+        qb, ql = _dev(cuda, *pad_queries(word_rows(rows, B), width))
+        if pools == "trimmed":
+            ti = trimmed(ti)
+        elif pools == "shifted":
+            ti = dataclasses.replace(ti, key_bytes=_shifted(ti.key_bytes, 3),
+                                     db_bytes=_shifted(ti.db_bytes, 5))
+            qb = _shifted(qb, 5)
+        before = dict(_build.LAUNCHES)
+        got = traverse.fused_search_cuda(ti, qb, ql)
+        for a, b in zip(got, traverse.fused_search_plain(ti, qb, ql)):
+            assert torch.equal(a, b)
+        for window in (1, WORD_WINDOW):
+            got = scan.fused_scan_cuda(ti, qb, ql, window=window)
+            for a, b in zip(got, scan.fused_scan_plain(ti, qb, ql, window=window)):
+                assert torch.equal(a, b)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["fused_search"] == before["fused_search"] + 1
+        assert _build.LAUNCHES["scan"] == before["scan"] + 2
+

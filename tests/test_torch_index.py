@@ -1,23 +1,28 @@
 """The port's main path against the JAX package, on the CPU: bulk load →
 freeze → batched point lookup.  Pools, (found, eid, is_delta, levels) and
 values must be equal bit for bit."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.core import LITSBuilder as RBuilder, StringSet as RStringSet
+from _torch_cases import (WORD_BATCHES_CPU, WORD_WIDTH, trimmed, word_edge_case,
+                          word_edge_indexes, word_rows)
+from repro.core import LITSBuilder as RBuilder, LITSConfig as RLITSConfig
+from repro.core import StringSet as RStringSet
 from repro.core import tensor_index as r_ti
 from repro.core.strings import random_strings
 from repro.index import IndexConfig as RConfig, StringIndex as RIndex
 from repro.kernels import ops as r_ops
 from repro_torch.convert import tensor_index_from_reference
 from repro_torch.core import tensor_index as t_ti
-from repro_torch.core.builder import LITSBuilder as TBuilder
+from repro_torch.core.builder import LITSBuilder as TBuilder, LITSConfig as TLITSConfig
 from repro_torch.core.strings import StringSet as TStringSet
 from repro_torch.data import synthetic
 from repro_torch.index import IndexConfig as TConfig, StringIndex as TIndex
-from repro_torch.kernels import traverse
+from repro_torch.kernels import _build, traverse
 
 DATA_FIELDS = list(t_ti.DATA_FIELDS)
 
@@ -249,3 +254,56 @@ def test_value_split_and_join_equal():
     np.testing.assert_array_equal(r_hi, t_hi)
     np.testing.assert_array_equal(t_facade._join_values(t_lo, t_hi), v)
     np.testing.assert_array_equal(r_facade._join_values(r_lo, r_hi), v)
+
+
+# -- the word-path edge cases of K4 (tests/_torch_cases.py) ----------------
+
+@functools.lru_cache(maxsize=None)
+def _word_indexes():
+    """The word-path edge case in both packages, its writes applied."""
+    _, rti = word_edge_indexes(RIndex, RConfig, RLITSConfig, auto_merge_threshold=None)
+    _, tti = word_edge_indexes(TIndex, TConfig, TLITSConfig, device="cpu")
+    return rti, tti, word_edge_case()[2]
+
+
+@pytest.mark.parametrize("pools", ["whole", "trimmed"])
+@pytest.mark.parametrize("B", WORD_BATCHES_CPU)
+def test_search_word_edge_cases_equal(B, pools):
+    """search_batch and the walk's level counts on the word-path edge cases
+    (key lengths 1, 15, 16, 17 and W, the W + 1 sentinel, bytes >= 0x80,
+    embedded zero bytes, a last byte off by one, prefixes both ways) at
+    batch sizes around a block, over a live delta, with whole key pools and
+    with pools cut to their used bytes."""
+    rti, tti, queries = _word_indexes()
+    if pools == "trimmed":
+        rti, tti = trimmed(rti), trimmed(tti)
+    assert set((tti.ent_off % 16).tolist()) == set(range(16))   # every key alignment
+    qb, ql = r_ti.pad_queries(word_rows(queries, B), WORD_WIDTH)
+    T = (torch.from_numpy(qb), torch.from_numpy(ql))
+    got = [x.numpy() for x in t_ti.search_batch(tti, *T)]
+    want = r_ti.search_batch(rti, jnp.asarray(qb), jnp.asarray(ql), backend="jnp")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    if B <= 257:
+        _, _, levels = traverse.fused_search(tti, *T)
+        _, _, r_levels = r_ops.fused_search(rti, jnp.asarray(qb), jnp.asarray(ql), interpret=True)
+        np.testing.assert_array_equal(levels.numpy(), np.asarray(r_levels))
+    if B > 31:
+        assert got[0].any() and not got[0].all()
+
+
+def test_paired_table_follows_the_tables():
+    """K4's interleaved (cdf, prob) table is made once per pair of table
+    tensors, again after an in-place write to either, and never for another
+    pair; it dies with its cdf table."""
+    ct, pt = torch.rand(8, 16), torch.rand(8, 16)
+    a = traverse.paired_table(ct, pt)
+    assert traverse.paired_table(ct, pt) is a
+    assert torch.equal(a[..., 0], ct) and torch.equal(a[..., 1], pt)
+    pt.mul_(0.5)
+    b = traverse.paired_table(ct, pt)
+    assert b is not a and torch.equal(b[..., 1], pt)
+    assert traverse.paired_table(ct, pt.clone()) is not b
+    n = len(_build._DERIVED)
+    del ct, a, b
+    assert len(_build._DERIVED) == n - 1

@@ -5,6 +5,11 @@ must equal the reference's jnp functions and its Pallas kernels (run in
 interpret mode) bit for bit.  The CUDA kernels are held against the same
 plain versions on the card (test_torch_cuda.py).
 """
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,3 +159,25 @@ def test_cnode_probe_equals_reference(B, K):
     np.testing.assert_array_equal(got, ref)
     got0 = ops.cnode_probe(*[torch.from_numpy(x) for x in (h, qh, cnt)]).numpy()
     np.testing.assert_array_equal(got0, np.asarray(r_ref.cnode_probe_ref(*J[:3])))
+
+
+def test_word_primitives_match_byte_loops(tmp_path):
+    """K4's and K6's row staging, word-wide compares, hash and GetCDF
+    (``csrc/lits_words.cuh``) equal byte loops written from the reference's
+    semantics, at every key alignment, with pools that cut keys' chunks and
+    rows with bytes past their length: ``tests/csrc/words_check.cpp``,
+    built with the host's C++ compiler against stand-ins for the CUDA
+    intrinsics (``tests/csrc/host/cuda_runtime.h``)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    root = Path(__file__).resolve().parents[1]
+    exe = tmp_path / "words_check"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-I", str(root / "tests/csrc/host"),
+                    "-I", str(root / "src/repro_torch/kernels/csrc"),
+                    str(root / "tests/csrc/words_check.cpp"), "-o", str(exe)],
+                   check=True, capture_output=True, timeout=300)
+    run = subprocess.run([str(exe), "3000"], capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    cases, word_path, bad = (int(x) for x in re.findall(r"\d+", run.stdout.splitlines()[-1]))
+    assert bad == 0 and cases > 300_000 and word_path > cases // 3

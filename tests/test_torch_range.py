@@ -10,18 +10,24 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import query_rows, scan_entries
-from repro.core import LITSBuilder as RBuilder, StringSet as RStringSet
+from _torch_cases import (WORD_BATCHES_CPU, WORD_WIDTH, WORD_WINDOW, query_rows, scan_entries,
+                          trimmed, word_edge_case, word_edge_indexes, word_rows)
+from repro.core import LITSBuilder as RBuilder, LITSConfig as RLITSConfig
+from repro.core import StringSet as RStringSet
 from repro.core import tensor_index as r_ti
 from repro.core.strings import random_strings
+from repro.index import IndexConfig as RConfig, StringIndex as RIndex
 from repro.kernels import ops as r_ops
 from repro.kernels import strops as r_strops
 from repro.kernels.hpt_cdf import hpt_cdf_pallas
 from repro_torch.convert import tensor_index_from_reference
 from repro_torch.core import tensor_index as t_ti
+from repro_torch.core.builder import LITSConfig as TLITSConfig
+from repro_torch.core.walk import rank_sorted
 from repro_torch.data import synthetic
 from repro_torch.index import IndexConfig, StringIndex
 from repro_torch.kernels import hpt_cdf, ops, rank, scan, strops
+from repro_torch.kernels.strops import take
 
 
 def _pair(keys, width=None, **freeze_kw):
@@ -184,7 +190,6 @@ def test_scan_delta_only_and_seam():
     base = [b"k-%03d" % i for i in range(0, 40, 2)]
     for keys in ([], base):
         cfg = dict(width=16, delta_capacity=64)
-        from repro.index import IndexConfig as RConfig, StringIndex as RIndex
         ri = RIndex.bulk_load(keys, np.arange(len(keys)) * 10 + 1,
                               RConfig(auto_merge_threshold=None, **cfg))
         ti = StringIndex.bulk_load(keys, np.arange(len(keys)) * 10 + 1,
@@ -276,3 +281,136 @@ def test_onehot_cdf_equals_reference_kernel_and_k2(max_steps):
     assert torch.get_float32_matmul_precision() == "highest"
     with pytest.raises(ValueError, match="variant"):
         ops.hpt_cdf(args[0], args[1], cdf_tab=args[3], prob_tab=args[4], variant="mxu")
+
+
+# -- the word-path edge cases of K6 (tests/_torch_cases.py) ----------------
+
+@functools.lru_cache(maxsize=None)
+def _word_indexes():
+    """The word-path edge case in both packages: (empty delta, live delta)."""
+    r = word_edge_indexes(RIndex, RConfig, RLITSConfig, auto_merge_threshold=None)
+    t = word_edge_indexes(StringIndex, IndexConfig, TLITSConfig, device="cpu")
+    return {"empty": (r[0], t[0]), "live": (r[1], t[1]), "trimmed": (trimmed(r[1]), trimmed(t[1]))}
+
+
+@pytest.mark.parametrize("delta", ["empty", "live", "trimmed"])
+@pytest.mark.parametrize("B", WORD_BATCHES_CPU)
+def test_scan_word_edge_cases_equal(B, delta):
+    """scan_batch and rank_batch on the word-path edge cases at batch sizes
+    around a block: empty delta, live delta (a tombstone run longer than
+    the window, resurrected keys shadowing their base keys at every window
+    slot, a delta key equal to a base key but for a trailing zero byte), and
+    the live delta with both key pools cut to their used bytes."""
+    rti, tti = _word_indexes()[delta]
+    qb, ql = r_ti.pad_queries(word_rows(word_edge_case()[3], B), WORD_WIDTH)
+    j, t = (jnp.asarray(qb), jnp.asarray(ql)), (torch.from_numpy(qb), torch.from_numpy(ql))
+    want = r_ti.scan_batch(rti, *j, WORD_WINDOW, backend="jnp")
+    got = t_ti.scan_batch(tti, *t, WORD_WINDOW)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    np.testing.assert_array_equal(t_ti.rank_batch(tti, *t).numpy(),
+                                  np.asarray(r_ti.rank_batch(rti, *j, backend="jnp")))
+    if B >= 256:
+        assert bool(got[2].any()) == (delta != "empty")
+
+
+def _multiway_rank(qb, ql, srt, off, ln, pool, n_live: int, G: int):
+    """A torch mirror of ``csrc/lits_words.cuh::group_rank``: each step
+    compares the keys at the G pivots lo + (j + 1) (hi - lo) / (G + 1) and
+    narrows [lo, hi) to the part between the last pivot below the query and
+    the first one not below it."""
+    B = qb.shape[0]
+    lo = torch.zeros(B, dtype=torch.int64)
+    hi = torch.full((B,), n_live, dtype=torch.int64)
+    j = torch.arange(1, G + 1)
+    while bool((lo < hi).any()):
+        live = lo < hi
+        piv = lo[:, None] + j[None, :] * (hi - lo)[:, None] // (G + 1)
+        e = take(srt, piv.clamp(max=srt.shape[0] - 1).flatten())
+        below = (strops.str_cmp_full(qb.repeat_interleave(G, 0), ql.repeat_interleave(G), pool,
+                                     take(off, e), take(ln, e)) > 0).view(B, G)
+        c = below.sum(dim=1)
+        p_lo = piv.gather(1, (c - 1).clamp(min=0)[:, None])[:, 0]
+        p_hi = piv.gather(1, c.clamp(max=G - 1)[:, None])[:, 0]
+        lo = torch.where(live & (c > 0), p_lo + 1, lo)
+        hi = torch.where(live & (c < G), p_hi, hi)
+    return lo
+
+
+def _sorted_pool(keys):
+    """Key-order tables over ``keys`` (already sorted, duplicates allowed),
+    padded to one entry when empty, the pool padded as freeze pads it."""
+    W = 8
+    lens = np.array([len(k) for k in keys] or [0], np.int32)
+    off = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int32)
+    pool = np.frombuffer(b"".join(keys) + bytes(W + 1), np.uint8).copy()
+    srt = np.arange(lens.shape[0], dtype=np.int32)
+    return [torch.from_numpy(a) for a in (srt, off, lens, pool)]
+
+
+@pytest.mark.parametrize("G", [4, 8])
+def test_multiway_rank_mirror_equals_rank_sorted(G):
+    """The multi-way search that K6 runs equals core.walk.rank_sorted, the
+    halving search of the reference, on every order length 0..300 with
+    duplicates, at the fewest halvings that cover the order
+    (ceil(log2(n + 1))) and at the rank_iters freeze gives (ceil(log2 n) + 2)."""
+    rng = np.random.default_rng(90 + G)
+    alphabet = [b"a", b"b", b"\x7f", b"\x80", b"\xff"]
+    for n in range(301):
+        keys = sorted(b"".join(alphabet[int(i)] for i in rng.integers(0, 5, int(m)))
+                      for m in rng.integers(1, 4, n))
+        srt, off, ln, pool = _sorted_pool(keys)
+        queries = keys[::7] + [k + b"a" for k in keys[::11]] + [k[:-1] for k in keys[::13]]
+        queries += [b"", b"\xff\xff\xff\xff", b"a"]
+        qb, ql = (torch.from_numpy(a) for a in t_ti.pad_queries(queries, 8))
+        want = _multiway_rank(qb, ql, srt, off, ln, pool, n, G)
+        for iters in {n.bit_length(), int(np.ceil(np.log2(max(n, 1)))) + 2}:
+            got = rank_sorted(qb, ql, srt, off, ln, pool, rank_iters=iters,
+                              n_live=torch.tensor(n, dtype=torch.int32))
+            np.testing.assert_array_equal(got.numpy(), want.numpy(), err_msg=f"n={n}")
+        assert want.tolist() == [bisect.bisect_left(keys, q) for q in queries]
+
+
+def test_multiway_rank_mirror_equals_rank_sorted_1m():
+    """The same at the real index's size: 1,000,000 sorted entries with
+    duplicates and the rank_iters that freeze gives them (22)."""
+    n = 1_000_000
+    rng = np.random.default_rng(91)
+    words = np.sort(rng.integers(0, 1 << 32, n, dtype=np.uint64) >> rng.integers(0, 2, n)
+                    .astype(np.uint64)).astype(">u4")
+    pool = np.concatenate([words.view(np.uint8), np.zeros(9, np.uint8)])
+    srt = torch.arange(n, dtype=torch.int32)
+    off = torch.arange(0, 4 * n, 4, dtype=torch.int32)
+    ln = torch.full((n,), 4, dtype=torch.int32)
+    keys = [bytes(words[i].tobytes()) for i in rng.integers(0, n, 300)]
+    queries = keys + [k[:3] for k in keys[:50]] + [b"", b"\xff" * 5]
+    qb, ql = (torch.from_numpy(a) for a in t_ti.pad_queries(queries, 8))
+    rank_iters = int(np.ceil(np.log2(n))) + 2
+    assert rank_iters == 22 and rank_iters >= n.bit_length()
+    got = rank_sorted(qb, ql, srt, off, ln, torch.from_numpy(pool), rank_iters=rank_iters)
+    want = _multiway_rank(qb, ql, srt, off, ln, torch.from_numpy(pool), n, 8)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_order_records_are_the_gathered_tables():
+    """K6's per-rank records (entry id, key offset, key length, tombstone
+    flag) are the order's gathers of the entry tables, clamped as the
+    reference clips, made again when a table is written in place."""
+    rti, tti = _word_indexes()["live"]
+    n = int(tti.de_count)
+    rec = scan.order_records(tti.ds_order, tti.de_off, tti.de_len, tti.de_tomb)
+    e = tti.ds_order.long()
+    assert rec.dtype == torch.int32 and rec.shape == (tti.ds_order.shape[0], 4)
+    assert torch.equal(rec[:, 0], tti.ds_order)
+    assert torch.equal(rec[:, 1], tti.de_off[e]) and torch.equal(rec[:, 2], tti.de_len[e])
+    assert torch.equal(rec[:, 3], tti.de_tomb[e].int()) and bool(rec[:n, 3].any())
+    base = scan.order_records(tti.ent_sorted, tti.ent_off, tti.ent_len)
+    assert base is scan.order_records(tti.ent_sorted, tti.ent_off, tti.ent_len)
+    assert not base[:, 3].any()
+    off = tti.ent_off.clone()
+    again = scan.order_records(tti.ent_sorted, off, tti.ent_len)
+    off.add_(1)
+    assert torch.equal(scan.order_records(tti.ent_sorted, off, tti.ent_len)[:, 1], again[:, 1] + 1)
+    odd = torch.tensor([0, 5, -3, 10**6], dtype=torch.int32)   # out-of-range ids clamp
+    rec = scan.order_records(odd, tti.ent_off, tti.ent_len)
+    assert torch.equal(rec[:, 1], take(tti.ent_off, odd)) and torch.equal(rec[:, 0], odd)
