@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent]
 
 Drives the port's paths (``repro_torch``, never ``repro`` or JAX) at a real
 size on one 1,000,000-key synthetic URL index:
@@ -13,7 +13,9 @@ size on one 1,000,000-key synthetic URL index:
   delta the write path leaves;
 * the write path: four ``put_batch``/``delete_batch`` rounds of 1,024 ops,
   replayed on a CPU copy of the index;
-* ``ops.hpt_cdf(variant="onehot")``, the one-hot GetCDF.
+* ``ops.hpt_cdf(variant="onehot")``, the one-hot GetCDF, on the index's HPT
+  and again on a copy with inf, -inf and NaN entries in columns the
+  queries read and in columns they do not.
 
 Every GetCDF (K2) and locate (K1) call of a second bulk load of the same
 keys (so that the recorder stays out of the timed one) is recorded and
@@ -28,6 +30,11 @@ are equal and that the card's writes equal the CPU's, and that every lookup
 and every scan window answers a host-side oracle; then it times each kernel
 (CUDA events around 50 launches captured in one CUDA graph).
 It exits non-zero on any failure, and when there is no CUDA device.
+
+``--parent`` runs it on a package from before K7's non-finite rule (the
+parent tree of a before/after run): the phase with non-finite tables, which
+such a package's plain version cannot pass, is skipped and says so.
+Without it the phase always runs.
 
 Output: one line per phase, then a JSON line of per-kernel numbers, then
 the last line ``{"ok": true, "device": {...}}``.
@@ -111,8 +118,12 @@ def bound_ms(nbytes: float, flops: float = 0.0):
 
 
 def max_abs_err(got, want) -> float:
-    return max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
-               for g, w in zip(got, want))
+    """Largest |got - want| over the finite outputs (a NaN or inf output must
+    be one in both: ``_torch_cases.nan_equal``)."""
+    def err(g, w):
+        fin = torch.isfinite(g.double()) & torch.isfinite(w.double())
+        return float((g.double() - w.double())[fin].abs().max()) if bool(fin.any()) else 0.0
+    return max(err(g, w) for g, w in zip(got, want))
 
 
 def join_values(lo, hi) -> np.ndarray:
@@ -419,7 +430,7 @@ def write_rounds(rng, keys, absent, found_keys, missed, key0, W):
             for kind, ops in rounds]
 
 
-def main() -> int:
+def main(parent: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -640,6 +651,35 @@ def main() -> int:
         f"hpt_cdf_onehot {onehot_launches['hpt_cdf_onehot']} hpt_cdf {onehot_launches['hpt_cdf']}")
     if onehot_launches["hpt_cdf_onehot"] != 1 or onehot_launches["hpt_cdf"] != 0:
         fail("variant='onehot' did not go through K7 alone")
+    # the same on tables with non-finite entries: a step's value is NaN where
+    # its column holds a non-finite entry in another row (the reference's
+    # true float32 contraction); entries in other columns do not reach it
+    if parent:
+        say("phase onehot non-finite: skipped (--parent: the package predates the rule)")
+    else:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from _torch_cases import nan_equal, nonfinite_tables
+
+        host = [t.cpu().numpy() for t in (qb, ql, start, ti.cdf_tab, ti.prob_tab)]
+        bad_ct, bad_pt = (torch.from_numpy(t).to(dev)
+                          for t in nonfinite_tables(*host, max_steps=steps))
+        n_bad = {k: int(f(bad_ct).sum() + f(bad_pt).sum()) for k, f in (
+            ("inf", torch.isposinf), ("-inf", torch.isneginf), ("NaN", torch.isnan))}
+        if min(n_bad.values()) == 0:
+            fail(f"non-finite tables hold {n_bad}: one kind is missing")
+        got = hpt_cdf.hpt_cdf_onehot_cuda(qb, ql, start, bad_ct, bad_pt, steps)
+        want = hpt_cdf.hpt_cdf_onehot_plain(qb, ql, start, bad_ct, bad_pt, steps)
+        sync()
+        same = nan_equal(got.cpu().numpy(), want.cpu().numpy())
+        n_nan = int(got.isnan().sum())
+        say(f"phase onehot non-finite: {B} rows on the {tuple(ti.cdf_tab.shape)} tables with "
+            f"entries {n_bad} (at the entry read least, in another row of the column read "
+            f"least, in unread columns): {n_nan} outputs NaN, {int(torch.isinf(got).sum())} "
+            f"inf; kernel == plain (NaN equal): {same}")
+        if not same:
+            fail("K7 differs from its plain version on tables with non-finite entries")
+        if not 0 < n_nan < B:
+            fail(f"{n_nan} of {B} outputs NaN: the non-finite columns were not read as planned")
 
     # 10. each kernel against its plain version at its path's shapes
     results, inputs = {}, {}
@@ -765,10 +805,9 @@ def main() -> int:
     }
     active = (torch.minimum(ql.long(), start.long() + steps) - start.long()).clamp(0, steps)
     n_steps = int(active.sum())
-    R = ti.cdf_tab.shape[0]
     table_bytes = 2 * ti.cdf_tab.numel() * 4
     nbytes["hpt_cdf"], cdf_flops = cdf_work("hpt_cdf", B, W, n_steps, table_bytes)
-    nbytes["hpt_cdf_onehot"] = nbytes["hpt_cdf"]
+    nbytes["hpt_cdf_onehot"] = nbytes["hpt_cdf"] + 2 * 4 * ti.cdf_tab.shape[1]  # + the counts
     nbytes["hpt_locate"], locate_flops = cdf_work("hpt_locate", B, W, n_steps, table_bytes)
     nbytes["cnode_probe"] = B * (K * 4 + 16)
     # rank: query rows in, ranks out, and what the searches must read of the
@@ -800,20 +839,18 @@ def main() -> int:
     empty_eids, empty_valid, _ = results["scan, empty delta"][0]
     base.read(empty_eids.flatten(), empty_valid.flatten())
     scan_empty_bytes = B * (W + 4) + B * WINDOW * 6 + base.total()
-    # K7 computes K2's function: its bound is K2's; the one-hot sweep's
-    # (4R + 3) float operations per step are how K7 works, not what it needs
+    # K7 computes K2's function (on finite tables): its bound is K2's work and
+    # the two per-column count tables; a one-hot product over the table's
+    # rows is how the TPU kernel worked, not what the function needs
     flops = {"fused_search": 0.0, "hpt_cdf": cdf_flops, "hpt_locate": locate_flops,
              "cnode_probe": 0.0, "hpt_cdf_onehot": cdf_flops, "rank": 0.0, "scan": 0.0}
-    say(f"phase times: hpt_cdf_onehot's one-hot sweep does {(4.0 * R + 3.0) * n_steps:.0f} "
-        f"float ops ({R} rows per step); its bound counts K2's {3.0 * n_steps:.0f}")
     launches = dict(main_launches)
     launches.update(rank=range_launches["rank"], scan=range_launches["scan"],
                     hpt_cdf_onehot=onehot_path_launches)
-    reps = {"hpt_cdf_onehot": 10}
     rows = []
     for name, (src, replaces) in KERNELS.items():
         args, kern, plain = inputs[name]
-        ms = kernel_ms(lambda: kern(*args), reps.get(name, 50))
+        ms = kernel_ms(lambda: kern(*args), 50)
         plain_ms = time_cuda(lambda: plain(*args), reps=3, warmup=1)
         b_ms, b_by = bound_ms(nbytes[name], flops[name])
         g, w = results[name]
@@ -885,4 +922,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", action="store_true",
+                    help="skip the phase that needs K7's non-finite rule")
+    sys.exit(main(ap.parse_args().parent))

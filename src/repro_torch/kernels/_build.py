@@ -151,6 +151,18 @@ def launch(lib_name: str, fn_name: str, argtypes, *args) -> None:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
 
 
+def check_stage_width(W: int, dev: torch.device) -> None:
+    """Refuse query rows too wide for K4, K5 and K6 to stage one of them in
+    a block's shared memory (``stage_stride(W)`` 32-bit words of
+    ``csrc/lits_words.cuh``; past 48 KB the kernels opt in to more, up to
+    the device's limit: 227 KB on an H100)."""
+    need = 4 * (((W + 3) // 4) | 1)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if need > limit:
+        raise ValueError(f"query width {W}: a staged row takes {need} bytes of shared "
+                         f"memory, more than the {limit} a block can have")
+
+
 def derived(kind: str, sources: Sequence[torch.Tensor],
             make: Callable[..., torch.Tensor]) -> torch.Tensor:
     """``make(*sources)``: a table a kernel reads in place of its sources,

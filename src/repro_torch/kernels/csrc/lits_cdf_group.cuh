@@ -1,5 +1,6 @@
 // GetCDF (paper Alg. 1) with G = kCdfGroup lanes per query, for the
-// standalone GetCDF (K2, hpt_cdf.cu) and locate (K1, hpt_locate.cu) kernels.
+// standalone GetCDF (K2, hpt_cdf.cu), one-hot GetCDF (K7, hpt_cdf_onehot.cu)
+// and locate (K1, hpt_locate.cu) kernels.
 // K4 keeps one thread per query for its GetCDF steps (lits_words.cuh,
 // cdf_row), inline in its walk.
 //
@@ -42,6 +43,12 @@ constexpr unsigned kFullMask = 0xFFFFFFFFu;
 // H100 and as fast as the others at the bulk load's launch shapes (PERF.md).
 constexpr int kCdfGroup = 8;
 
+// What a step makes of the two table values it read at column c: K2 and K1
+// take them as they are; K7 (hpt_cdf_onehot.cu) passes its own.
+struct TableValues {
+  __device__ __forceinline__ void operator()(int c, float& cval, float& pval) const {}
+};
+
 // Active steps of a query: start + k < qlen, for k < steps.
 __device__ __forceinline__ int cdf_active_steps(int qlen, int start, int steps) {
   return min(max(qlen - start, 0), steps);
@@ -50,11 +57,12 @@ __device__ __forceinline__ int cdf_active_steps(int qlen, int start, int steps) 
 // GetCDF of row `q` (L bytes) with `n_act` active steps from `start`; `lane`
 // is the thread's rank in its group of kCdfGroup.  Every lane of the warp must call
 // it (a thread without a query passes n_act = 0); every lane of the group
-// returns the same value.
+// returns the same value.  `values` sees each active step's two reads.
+template <class Values = TableValues>
 __device__ __forceinline__ float group_cdf(const uint8_t* __restrict__ q, int L, int n_act,
                                            int start, const float* __restrict__ cdf_tab,
                                            const float* __restrict__ prob_tab, int R, int C,
-                                           int lane) {
+                                           int lane, Values values = Values()) {
   constexpr int G = kCdfGroup;
   constexpr int kPer = kChunk / G;          // steps a lane owns per chunk
   constexpr int kWords = (kPer + 3) / 4;    // its bytes, four to a word
@@ -111,6 +119,7 @@ __device__ __forceinline__ float group_cdf(const uint8_t* __restrict__ q, int L,
         const int idx = static_cast<int>(hk[r] & row_mask) * C + c;
         cv[r] = __ldg(cdf_tab + idx);
         pv[r] = __ldg(prob_tab + idx);
+        values(c, cv[r], pv[r]);
       }
     }
     // 4. the sum, in step order

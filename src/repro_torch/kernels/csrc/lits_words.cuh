@@ -1,8 +1,7 @@
 // Staged query rows and word-wide string compares, for the fused lookup
-// (K4, traverse.cu) and the range scan (K6, scan.cu).  K5 (rank.cu) keeps
-// lits_rank.cuh's byte-wise search.  Every function gives the result of the
-// reference's byte loop (repro/kernels/strops.py, repro/core/walk.py) bit
-// for bit.
+// (K4, traverse.cu), the rank (K5, rank.cu) and the range scan (K6,
+// scan.cu).  Every function gives the result of the reference's byte loop
+// (repro/kernels/strops.py, repro/core/walk.py) bit for bit.
 //
 // Staged rows.  A block's query rows are contiguous in the (B, W) matrix.
 // The block copies them once into shared memory with coalesced 16-byte
@@ -35,6 +34,31 @@ namespace lits {
 
 // 32-bit words per staged row: the least odd count that holds W bytes.
 __host__ __device__ constexpr int stage_stride(int W) { return ((W + 3) / 4) | 1; }
+
+// Shared memory a launch gets without opting in to more.
+constexpr size_t kStageDefault = 48 * 1024;
+
+// Query rows per block of a kernel that stages its rows with `lanes` threads
+// per row: kBlock / lanes, halved while the stage would pass kStageDefault,
+// down to one row (so a block holds whole groups of lanes).
+__host__ inline int stage_rows_per_block(int W, int lanes) {
+  const size_t row = static_cast<size_t>(stage_stride(W)) * 4;
+  int rows = kBlock / lanes;
+  while (rows > 1 && rows * row > kStageDefault) rows /= 2;
+  return rows;
+}
+
+#ifdef __CUDACC__
+// Let `kernel` take a stage of `bytes`: one row wider than kStageDefault (W
+// past 49,000 bytes) opts in to more, which fails past the device's limit
+// (227 KB on an H100).  The wrappers refuse such widths before a launch.
+template <class Kernel>
+cudaError_t allow_stage(Kernel* kernel, size_t bytes) {
+  if (bytes <= kStageDefault) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+#endif
 
 // Copy rows [r0, r0 + rows) of the (B, W) byte matrix q into `stage`
 // (rows * S words), zero past W and past row B.  Every thread of the block

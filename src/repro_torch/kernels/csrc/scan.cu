@@ -52,7 +52,7 @@
 
 // The two sorted orders, each with one int4 record per rank (entry id,
 // key offset, key length, tombstone flag), made by the wrapper from the
-// order and its entry tables (kernels/scan.py, order_records).
+// order and its entry tables (kernels/rank.py, order_records).
 struct ScanPools {
   const int* ent_sorted;
   long long n_sorted;
@@ -71,16 +71,16 @@ namespace {
 
 constexpr int G = 4;    // lanes per query
 constexpr int kC = 1;   // 16-byte chunks a compare reads per round trip
-constexpr int kRows = lits::kBlock / G;  // queries per block
 constexpr unsigned kGroupBits = (1u << G) - 1u;
 
 __global__ void __launch_bounds__(lits::kBlock)
 scan_kernel(const ScanPools p, const uint8_t* __restrict__ q, const int* __restrict__ qlens,
             int B, int W, int S, int window, int* __restrict__ eids, bool* __restrict__ valid,
             bool* __restrict__ is_delta) {
+  const int rows = blockDim.x / G;  // queries per block
   extern __shared__ uint32_t stage[];
-  const long long r0 = static_cast<long long>(blockIdx.x) * kRows;
-  lits::stage_rows(q, B, W, r0, kRows, stage, S);
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
+  lits::stage_rows(q, B, W, r0, rows, stage, S);
   const int g = threadIdx.x / G;
   const int lane = threadIdx.x % G;
   const int gshift = (threadIdx.x % 32) / G * G;
@@ -210,13 +210,18 @@ scan_kernel(const ScanPools p, const uint8_t* __restrict__ q, const int* __restr
 
 }  // namespace
 
+// A block holds kBlock / G rows, fewer for rows so wide that the stage
+// would pass 48 KB (widths past 764 bytes).
 extern "C" int lits_scan(const ScanPools* pools, const uint8_t* q, const int* qlens, int B,
                          int W, int window, int* eids, bool* valid, bool* is_delta,
                          void* stream) {
   const int S = lits::stage_stride(W);
-  const int grid = (B + kRows - 1) / kRows;
-  scan_kernel<<<grid, lits::kBlock, static_cast<size_t>(kRows) * S * 4,
-                static_cast<cudaStream_t>(stream)>>>(*pools, q, qlens, B, W, S, window, eids,
-                                                     valid, is_delta);
+  const int rows = lits::stage_rows_per_block(W, G);
+  const size_t bytes = static_cast<size_t>(rows) * S * 4;
+  const cudaError_t e = lits::allow_stage(scan_kernel, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int grid = (B + rows - 1) / rows;
+  scan_kernel<<<grid, rows * G, bytes, static_cast<cudaStream_t>(stream)>>>(
+      *pools, q, qlens, B, W, S, window, eids, valid, is_delta);
   return static_cast<int>(cudaGetLastError());
 }

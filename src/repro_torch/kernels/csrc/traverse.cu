@@ -158,16 +158,17 @@ fused_search_kernel(const LitsPools p, const uint8_t* __restrict__ q,
 }  // namespace
 
 // Rows per block: kBlock, fewer for rows so wide that the stage would pass
-// the 48 KB of static shared memory (widths past 188 bytes).
+// 48 KB (widths past 188 bytes).
 extern "C" int lits_fused_search(const LitsPools* pools, const uint8_t* q, const int* qlens,
                                  int B, int W, int max_iters, int cnode_cap, int cdf_steps,
                                  int* found, int* eid, int* levels, void* stream) {
   const int S = lits::stage_stride(W);
-  int rows = lits::kBlock;
-  while (rows > 32 && static_cast<size_t>(rows) * S * 4 > 48 * 1024) rows /= 2;
+  const int rows = lits::stage_rows_per_block(W, 1);
+  const size_t bytes = static_cast<size_t>(rows) * S * 4;
+  const cudaError_t e = lits::allow_stage(fused_search_kernel, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = (B + rows - 1) / rows;
-  fused_search_kernel<<<grid, rows, static_cast<size_t>(rows) * S * 4,
-                        static_cast<cudaStream_t>(stream)>>>(
+  fused_search_kernel<<<grid, rows, bytes, static_cast<cudaStream_t>(stream)>>>(
       *pools, q, qlens, B, W, S, max_iters, cnode_cap, cdf_steps, found, eid, levels);
   return static_cast<int>(cudaGetLastError());
 }

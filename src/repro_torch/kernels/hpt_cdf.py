@@ -14,11 +14,17 @@ the rate of scattered table reads sets the pace.  The plain version is the refer
 ``get_cdf_impl`` in tensor ops.
 
 K7 replaces ``_cdf_kernel_onehot``, the same walk with each table value
-selected by a one-hot contraction over the table's rows.  The kernel is
-``csrc/hpt_cdf_onehot.cu`` (a warp per query sweeps the rows of the step's
-column); the plain version multiplies a (B, R) one-hot by the table in true
-float32 and selects the column with a second one-hot.  Exactly one weight is
-non-zero, so on finite tables both equal K2 bit for bit.
+selected by one-hot contractions: a (B, R) row one-hot times the table, a
+true float32 product, then a select of the step's column.  In that product
+``0 * inf`` and ``0 * nan`` are NaN, so a step's value is ``tab[row, c]``
+unless column ``c`` holds a non-finite entry in another row, and then it is
+NaN; a non-finite entry in another column does not reach the step (the
+reference's column select passes column ``c`` alone).  On finite tables K7
+equals K2 bit for bit.  The kernel is ``csrc/hpt_cdf_onehot.cu``: K2's lane
+group walk, with each value read turned into NaN where the column's count
+of non-finite entries, less the entry's own, is positive.  The counts are
+made once per table (:func:`nonfinite_columns`).  The plain version does
+the contraction as the reference does.
 
 Numerics: ``cdf += prob * cval`` is two separately rounded float32 ops (the
 reference does not contract it to an FMA), and ``prob *= pval``.  A step is
@@ -66,7 +72,9 @@ def hpt_cdf_plain(qbytes, qlens, start, cdf_tab, prob_tab,
 def hpt_cdf_onehot_plain(qbytes, qlens, start, cdf_tab, prob_tab,
                          max_steps: int = MAX_CDF_STEPS) -> torch.Tensor:
     """Plain one-hot GetCDF: per step a (B, R) row one-hot times each table
-    (a true float32 product, never TF32), then a (B, C) column one-hot."""
+    (a true float32 product, never TF32, in which a zero weight on a
+    non-finite entry gives NaN), then the step's column of the product,
+    selected alone."""
     R, C = cdf_tab.shape
     B, L = qbytes.shape
     dev = qbytes.device
@@ -76,7 +84,6 @@ def hpt_cdf_onehot_plain(qbytes, qlens, start, cdf_tab, prob_tab,
     prob = torch.ones(B, dtype=torch.float32, device=dev)
     h = torch.zeros(B, dtype=torch.int64, device=dev)
     rows = torch.arange(R, device=dev)[None, :]
-    cols = torch.arange(C, device=dev)[None, :]
     precision = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
     try:
@@ -85,15 +92,22 @@ def hpt_cdf_onehot_plain(qbytes, qlens, start, cdf_tab, prob_tab,
             c = qbytes.gather(1, pos.clamp(0, L - 1)[:, None])[:, 0].long().clamp(max=C - 1)
             active = pos < qlens
             row_oh = (rows == (h & (R - 1))[:, None]).float()
-            col_oh = (cols == c[:, None]).float()
-            cval = (torch.matmul(row_oh, cdf_tab) * col_oh).sum(dim=1)
-            pval = (torch.matmul(row_oh, prob_tab) * col_oh).sum(dim=1)
+            cval = torch.matmul(row_oh, cdf_tab).gather(1, c[:, None])[:, 0]
+            pval = torch.matmul(row_oh, prob_tab).gather(1, c[:, None])[:, 0]
             cdf = cdf + torch.where(active, prob * cval, 0.0)
             prob = prob * torch.where(active, pval, 1.0)
             h = torch.where(active, ((h ^ c) * FNV_PRIME) & U32, h)
     finally:
         torch.set_float32_matmul_precision(precision)
     return cdf
+
+
+def nonfinite_columns(tab) -> torch.Tensor:
+    """(C,) int32: the non-finite entries of each column of an (R, C) table,
+    made once per table (:func:`_build.derived`).  K7 reads a step's value
+    as NaN where its column's count, less the entry's own, is positive."""
+    return _build.derived("nonfinite_columns", (tab,),
+                          lambda t: (~torch.isfinite(t)).sum(dim=0, dtype=torch.int32))
 
 
 def _check_cdf_args(qbytes, qlens, start, cdf_tab, prob_tab):
@@ -117,11 +131,13 @@ def hpt_cdf_onehot_cuda(qbytes, qlens, start, cdf_tab, prob_tab,
     out = torch.empty(B, dtype=torch.float32, device=qbytes.device)
     if B == 0:
         return out
+    cdf_bad, prob_bad = nonfinite_columns(cdf_tab), nonfinite_columns(prob_tab)
     P, I = ctypes.c_void_p, ctypes.c_int
     _build.launch(
-        "hpt_cdf_onehot", "lits_hpt_cdf_onehot", [P, P, P, P, P, I, I, I, I, I, P],
+        "hpt_cdf_onehot", "lits_hpt_cdf_onehot", [P, P, P, P, P, P, P, I, I, I, I, I, P],
         qbytes.data_ptr(), qlens.data_ptr(), start.data_ptr(), cdf_tab.data_ptr(),
-        prob_tab.data_ptr(), B, L, R, C, int(max_steps), out.data_ptr())
+        prob_tab.data_ptr(), cdf_bad.data_ptr(), prob_bad.data_ptr(), B, L, R, C,
+        int(max_steps), out.data_ptr())
     _build.LAUNCHES["hpt_cdf_onehot"] += 1
     return out
 

@@ -1,9 +1,11 @@
 """K5: ordered rank — the first rank r with key(ent_sorted[r]) >= query.
 
 Replaces ``repro/kernels/rank.py::_rank_kernel``.  The kernel is
-``csrc/rank.cu``: one thread per query runs the ``rank_iters``-step binary
-search of ``csrc/lits_rank.cuh`` (which K6 calls too).  The plain version is
-:func:`repro_torch.core.walk.rank_sorted`.
+``csrc/rank.cu``, the rank half of K6: the block stages its query rows in
+shared memory, and a group of 4 lanes per query runs the multi-way search
+``lits::group_rank`` (``csrc/lits_words.cuh``) over one 16-byte record per
+rank (:func:`order_records`, shared with K6).  The plain
+version is :func:`repro_torch.core.walk.rank_sorted`.
 """
 from __future__ import annotations
 
@@ -16,6 +18,22 @@ from repro_torch.core.walk import rank_sorted
 from . import _build
 
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def order_records(order, off, ln, tomb=None) -> torch.Tensor:
+    """(n, 4) int32: per rank r of a sorted order, the entry id
+    ``order[r]``, its key's offset and length and its tombstone flag (0
+    without ``tomb``), so that a search step or a merge head reads them in
+    one 16-byte load.  The entry index is clamped into the tables, as the
+    reference's gathers clip.  Kept by :func:`_build.derived`, so K5 and K6
+    share the table of ``ent_sorted``."""
+    def make(order, off, ln, *tomb):
+        e = order.long().clamp(0, off.shape[0] - 1)
+        flag = tomb[0][e].to(torch.int32) if tomb else torch.zeros_like(order)
+        return torch.stack([order, off[e], ln[e], flag], dim=1).contiguous()
+
+    return _build.derived("order_records", (order, off, ln) + ((tomb,) if tomb is not None
+                                                               else ()), make)
 
 
 def check_order(srt, off, ln, pool, dev) -> None:
@@ -35,7 +53,17 @@ def check_queries(ti, qbytes, qlens):
         raise ValueError(f"query width {W} != index width {ti.width}")
     _build.check(qbytes, "qbytes", torch.uint8, (B, W), qbytes.device)
     _build.check(qlens, "qlens", torch.int32, (B,), qbytes.device)
+    _build.check_stage_width(W, qbytes.device)
     return B, W
+
+
+def check_rank_iters(ti) -> None:
+    """Refuse a ``rank_iters`` that a halving search of ``ent_sorted`` would
+    stop short with.  The kernels' multi-way search returns the lower bound,
+    as a halving search of at least ceil(log2(n + 1)) steps does."""
+    n = ti.ent_sorted.shape[0]
+    if ti.rank_iters < n.bit_length():
+        raise ValueError(f"rank_iters {ti.rank_iters} is too few for {n} sorted rows")
 
 
 def fused_rank_cuda(ti, qbytes, qlens) -> torch.Tensor:
@@ -44,12 +72,13 @@ def fused_rank_cuda(ti, qbytes, qlens) -> torch.Tensor:
     dev = qbytes.device
     srt, off, ln, pool = ti.ent_sorted, ti.ent_off, ti.ent_len, ti.key_bytes
     check_order(srt, off, ln, pool, dev)
+    check_rank_iters(ti)
+    rec = order_records(srt, off, ln)
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        _build.launch("rank", "lits_rank", [_P, _P, _P, _N, _P, _P, _N, _P, _N, _I, _I, _I, _P],
-                      qbytes.data_ptr(), qlens.data_ptr(), srt.data_ptr(), srt.shape[0],
-                      off.data_ptr(), ln.data_ptr(), off.shape[0], pool.data_ptr(),
-                      pool.shape[0], B, W, ti.rank_iters, out.data_ptr())
+        _build.launch("rank", "lits_rank", [_P, _N, _P, _N, _P, _P, _I, _I, _P],
+                      rec.data_ptr(), rec.shape[0], pool.data_ptr(), pool.shape[0],
+                      qbytes.data_ptr(), qlens.data_ptr(), B, W, out.data_ptr())
         _build.LAUNCHES["rank"] += 1
     return out
 

@@ -16,7 +16,7 @@ import torch
 from repro_torch.core.walk import scan_merged
 
 from . import _build
-from .rank import check_order, check_queries
+from .rank import check_order, check_queries, check_rank_iters, order_records
 
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
@@ -26,21 +26,6 @@ class ScanPools(ctypes.Structure):
     _fields_ = [("ent_sorted", _P), ("n_sorted", _N), ("base_rec", _P), ("key_bytes", _P),
                 ("n_key", _N), ("n_base", _P), ("delta_rec", _P), ("n_ds", _N),
                 ("db_bytes", _P), ("n_db", _N), ("n_delta", _P)]
-
-
-def order_records(order, off, ln, tomb=None) -> torch.Tensor:
-    """(n, 4) int32: per rank r of a sorted order, the entry id
-    ``order[r]``, its key's offset and length and its tombstone flag (0
-    without ``tomb``), so that a search step or a merge head reads them in
-    one 16-byte load.  The entry index is clamped into the tables, as the
-    reference's gathers clip.  Kept by :func:`_build.derived`."""
-    def make(order, off, ln, *tomb):
-        e = order.long().clamp(0, off.shape[0] - 1)
-        flag = tomb[0][e].to(torch.int32) if tomb else torch.zeros_like(order)
-        return torch.stack([order, off[e], ln[e], flag], dim=1).contiguous()
-
-    return _build.derived("order_records", (order, off, ln) + ((tomb,) if tomb is not None
-                                                               else ()), make)
 
 
 def scan_n_base(ti) -> torch.Tensor:
@@ -61,10 +46,7 @@ def fused_scan_cuda(ti, qbytes, qlens, *, window: int):
     check_order(dso, doff, dln, dpool, dev)
     _build.check(ti.de_tomb, "de_tomb", torch.bool, doff.shape, dev)
     _build.check(ti.de_count, "de_count", torch.int32, (), dev)
-    if ti.rank_iters < srt.shape[0].bit_length():
-        # the kernel's search returns the lower bound, as a halving search
-        # of at least ceil(log2(n + 1)) steps does; fewer steps stop short
-        raise ValueError(f"rank_iters {ti.rank_iters} is too few for {srt.shape[0]} sorted rows")
+    check_rank_iters(ti)
     n_base = scan_n_base(ti)
     base_rec = order_records(srt, off, ln)
     delta_rec = order_records(dso, doff, dln, ti.de_tomb)

@@ -81,6 +81,7 @@ def fused_search_cuda(ti, qbytes, qlens):
         raise ValueError(f"query width {W} != index width {ti.width}")
     _build.check(qbytes, "qbytes", torch.uint8, (B, W), dev)
     _build.check(qlens, "qlens", torch.int32, (B,), dev)
+    _build.check_stage_width(W, dev)
     pools = _pools(ti, dev)
     found = torch.empty(B, dtype=torch.int32, device=dev)
     eid = torch.empty(B, dtype=torch.int32, device=dev)

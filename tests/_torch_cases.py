@@ -8,6 +8,7 @@ from fractions import Fraction
 import numpy as np
 
 from repro_torch.core.strings import StringSet, random_strings
+from repro_torch.kernels.strops import FNV_PRIME, U32
 
 
 def query_rows(rng, n: int, width: int, rows: int = 256):
@@ -161,6 +162,79 @@ def edge_cdf_rows(L: int, table: str, n: int = 65536):
             rng.integers(8, 1 << 20, n).astype(np.int32))
 
 
+def visited_entries(qb, ql, st, R: int, C: int, max_steps: int):
+    """The table entries (flat indices ``row * C + column``) that the GetCDF
+    walk's active steps read, and how many reads each gets."""
+    B, L = qb.shape
+    h = np.zeros(B, np.uint64)
+    flat = []
+    for k in range(min(max_steps, L)):
+        pos = st.astype(np.int64) + k
+        c = np.minimum(qb[np.arange(B), np.clip(pos, 0, L - 1)].astype(np.int64), C - 1)
+        act = pos < ql
+        flat.append(((h & np.uint64(R - 1)).astype(np.int64) * C + c)[act])
+        h = np.where(act, ((h ^ c.astype(np.uint64)) * np.uint64(FNV_PRIME)) & np.uint64(U32), h)
+    return np.unique(np.concatenate(flat), return_counts=True)
+
+
+def nonfinite_tables(qb, ql, st, cdf_tab, prob_tab, max_steps: int):
+    """Copies of the two tables with inf, -inf and NaN entries: inf at the
+    entry the walk reads least (the value a query selects); NaN in a column
+    the queries use, in a row no query reads there (every read of that
+    column is NaN in the one-hot contraction), in the least-read such column,
+    or at the next least-read entry where every used column is read in every
+    row; -inf and inf in columns no query reads."""
+    R, C = cdf_tab.shape
+    cdf_tab, prob_tab = cdf_tab.copy(), prob_tab.copy()
+    idx, reads = visited_entries(qb, ql, st, R, C, max_steps)
+    col_reads = np.bincount(idx % C, weights=reads, minlength=C)
+    if idx.size:
+        by_reads = idx[np.argsort(reads, kind="stable")]
+        cdf_tab.flat[by_reads[0]] = np.inf
+        rows_read = np.bincount(idx % C, minlength=C)
+        cols = np.flatnonzero((col_reads > 0) & (rows_read < R))
+        if cols.size:
+            col = int(cols[col_reads[cols].argmin()])
+            prob_tab.flat[np.setdiff1d(np.arange(R) * C + col, idx)[0]] = np.nan
+        elif idx.size > 1:
+            prob_tab.flat[by_reads[1]] = np.nan
+    unused = np.flatnonzero(col_reads == 0)
+    if unused.size:
+        cdf_tab[0, unused[0]] = -np.inf
+        prob_tab[R - 1, unused[-1]] = np.inf
+    return cdf_tab, prob_tab
+
+
+def nan_equal(a, b) -> bool:
+    """Float32 arrays equal bit for bit where not NaN, with NaN at the same
+    places."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    nan = np.isnan(a)
+    return bool((nan == np.isnan(b)).all()
+                and (a[~nan].view(np.int32) == b[~nan].view(np.int32)).all())
+
+
+def short_orders(seed: int, width: int = 8):
+    """Sorted orders of every length 0..300 over a five-byte alphabet (bytes
+    >= 0x80 included), with duplicates and proper prefixes.  Yields
+    ``(keys, queries, (ent_sorted, ent_off, ent_len, key_bytes))``: the
+    tables as numpy arrays, padded to one entry when ``keys`` is empty, the
+    pool padded with ``width + 1`` zero bytes as freeze pads it; the queries
+    hold keys, extensions, prefixes, the empty query and one past every key."""
+    rng = np.random.default_rng(seed)
+    alphabet = [b"a", b"b", b"\x7f", b"\x80", b"\xff"]
+    for n in range(301):
+        keys = sorted(b"".join(alphabet[int(i)] for i in rng.integers(0, 5, int(m)))
+                      for m in rng.integers(1, 4, n))
+        lens = np.array([len(k) for k in keys] or [0], np.int32)
+        off = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int32)
+        pool = np.frombuffer(b"".join(keys) + bytes(width + 1), np.uint8).copy()
+        srt = np.arange(lens.shape[0], dtype=np.int32)
+        queries = keys[::7] + [k + b"a" for k in keys[::11]] + [k[:-1] for k in keys[::13]]
+        queries += [b"", b"\xff\xff\xff\xff", b"a"]
+        yield keys, queries, (srt, off, lens, pool)
+
+
 # Batch sizes at which staged query rows and lane groups can go wrong: one
 # query, a ragged warp, a block less one, a block, one past, a full batch.
 # The CPU runs the plain versions, which have no blocks, against the
@@ -235,18 +309,44 @@ def word_edge_case(width: int = WORD_WIDTH, seed: int = 0):
     return keys, writes, queries, starts
 
 
+def wide_edge_case(width: int, seed: int = 0):
+    """Keys, writes and queries for rows wider than a block stages by
+    default: 60 keys that share a prefix of up to ``width`` bytes and part in
+    their last three, prefixes of it at lengths 1, 16, 17, ``width - 1`` and
+    ``width``; writes that put keys one byte past stored ones and delete
+    some of each.  Returns ``(keys, writes, queries, starts)`` as
+    :func:`word_edge_case` does; the queries hold every key, each with its
+    last byte one up and one down, proper prefixes, the empty query and an
+    over-width (``width + 1``) sentinel, and ``starts`` is the same list."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(1, 256, width, dtype=np.uint8).tobytes()
+    keys = {base[: int(n)] + rng.integers(1, 256, 3, dtype=np.uint8).tobytes()
+            for n in rng.integers(0, width - 2, 60)}
+    keys = sorted(keys | {base[:n] for n in (1, 16, 17, width - 1, width)})
+    fresh = sorted({k + b"\x01" for k in keys[::3] if len(k) < width} - set(keys))
+    writes = [("put", fresh), ("delete", keys[1::4] + fresh[::2])]
+
+    def bump(k, d):
+        return k[:-1] + bytes([(k[-1] + d) % 256])
+
+    queries = list(keys) + [bump(k, 1) for k in keys] + [bump(k, -1) for k in keys]
+    queries += [k[:-1] for k in keys if len(k) > 1] + [k[: len(k) // 2] for k in keys]
+    queries += [b"", base + b"\xff", b"\xff" * (width + 1)] + fresh
+    return keys, writes, queries, queries
+
+
 def word_rows(queries, n: int):
     """The first ``n`` of ``queries`` repeated in turn."""
     return [queries[i % len(queries)] for i in range(n)]
 
 
 def word_edge_indexes(index_cls, config_cls, builder_config_cls, width: int = WORD_WIDTH,
-                      **config):
-    """:func:`word_edge_case` bulk-loaded through a package's facade
+                      case=word_edge_case, **config):
+    """``case`` (:func:`word_edge_case`) bulk-loaded through a package's facade
     (``StringIndex``, ``IndexConfig``, ``LITSConfig`` of either package):
     ``(ti before the writes, ti after them)``.  The keys hold bytes >= 0x80,
     so the HPT has 256 columns."""
-    keys, writes, _, _ = word_edge_case(width)
+    keys, writes, _, _ = case(width)
     vals = np.arange(len(keys), dtype=np.int64) * 3 + 1
     ix = index_cls.bulk_load(keys, vals, config_cls(
         width=width, delta_capacity=256, builder=builder_config_cls(hpt_cols=256), **config))

@@ -6,6 +6,7 @@ with its reason.  Run on the card with
 is exact throughout: a kernel that is off by one float32 ulp places a key
 in another slot.
 """
+import bisect
 import dataclasses
 
 import numpy as np
@@ -13,13 +14,14 @@ import pytest
 import torch
 
 from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, WORD_BATCHES, WORD_WINDOW,
-                          edge_cdf_rows, query_rows, saturation_cases, tie_cases, tie_table,
-                          trimmed, word_edge_case, word_edge_indexes, word_rows)
+                          edge_cdf_rows, nan_equal, nonfinite_tables, query_rows,
+                          saturation_cases, short_orders, tie_cases, tie_table, trimmed,
+                          wide_edge_case, word_edge_case, word_edge_indexes, word_rows)
 from repro_torch.core.strings import StringSet
 from repro_torch.core.builder import LITSBuilder, LITSConfig
 from repro_torch.core.tensor_index import DATA_FIELDS, freeze, pad_queries
 from repro_torch.data import synthetic
-from repro_torch.kernels import _build, cnode_probe, hpt_cdf, hpt_locate, traverse
+from repro_torch.kernels import _build, cnode_probe, hpt_cdf, hpt_locate, rank, traverse
 
 pytestmark = pytest.mark.cuda
 
@@ -259,17 +261,89 @@ def test_cuda_onehot_cdf_matches_plain_and_k2(cuda):
     assert _build.LAUNCHES["hpt_cdf"] == before["hpt_cdf"]
 
 
+@pytest.mark.parametrize("entries", ["finite", "non-finite"])
+@pytest.mark.parametrize("table", CDF_TABLES)
+@pytest.mark.parametrize("B", [1, 33, 257, 65536])
+def test_cuda_onehot_cdf_edge_rows_match_plain(cuda, B, table, entries):
+    """K7 equals its plain version (NaN equal to NaN) on the GetCDF edge
+    rows (qlen 0, start >= qlen, qlen > start + 64, the over-width sentinel,
+    bytes >= C) and tables, finite and with the inf, -inf and NaN entries of
+    ``nonfinite_tables`` (at a selected entry, in another row of a column
+    the queries read, in columns they do not read); on finite tables it
+    equals K2 bit for bit."""
+    qb, ql, st, ct, pt = edge_cdf_rows(94, table)[:5]
+    qb, ql, st = (a[:B] for a in (qb, ql, st))
+    if entries == "non-finite":
+        ct, pt = nonfinite_tables(qb, ql, st, ct, pt, 64)
+    qb, ql, st, ct, pt = _dev(cuda, qb, ql, st, ct, pt)
+    before = dict(_build.LAUNCHES)
+    got = hpt_cdf.hpt_cdf_onehot_cuda(qb, ql, st, ct, pt)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["hpt_cdf_onehot"] == before["hpt_cdf_onehot"] + 1
+    assert _build.LAUNCHES["hpt_cdf"] == before["hpt_cdf"]
+    assert nan_equal(got.cpu().numpy(), hpt_cdf.hpt_cdf_onehot_plain(qb, ql, st, ct, pt).cpu().numpy())
+    if entries == "finite":
+        assert torch.equal(got, hpt_cdf.hpt_cdf_cuda(qb, ql, st, ct, pt))
+
+
+@pytest.mark.parametrize("pools", ["whole", "trimmed", "shifted"])
+def test_cuda_rank_short_orders_match_plain(cuda, pools):
+    """K5 equals its plain version and bisect on sorted
+    orders of every length 0..300 with duplicates (length 0 is the one-entry
+    pad), at rank_iters ceil(log2(n + 1)) and ceil(log2 n) + 2, with the key
+    pool padded as freeze pads it, cut to its used bytes, and shifted off
+    16-byte alignment; and on an EMPTY root's one-entry pad."""
+    from types import SimpleNamespace
+
+    from repro_torch.index import IndexConfig, StringIndex
+
+    for keys, queries, tables in short_orders(7, width=8):
+        srt, off, ln, pool = _dev(cuda, *tables)
+        if pools == "trimmed":
+            pool = pool[: max(int(ln.sum()), 1)]
+        elif pools == "shifted":
+            pool = _shifted(pool, 3)
+        qb, ql = _dev(cuda, *pad_queries(queries, 8))
+        n = srt.shape[0]
+        for iters in {n.bit_length(), int(np.ceil(np.log2(n))) + 2}:
+            ti = SimpleNamespace(width=8, rank_iters=iters, ent_sorted=srt, ent_off=off,
+                                 ent_len=ln, key_bytes=pool)
+            got = rank.fused_rank_cuda(ti, qb, ql)
+            assert torch.equal(got, rank.fused_rank_plain(ti, qb, ql)), (len(keys), iters)
+            if keys:
+                assert got.tolist() == [bisect.bisect_left(keys, q) for q in queries]
+    ix = StringIndex.bulk_load([], np.zeros(0, np.int64), IndexConfig(device="cuda"))
+    assert int(ix.ti.root_item) == 0 and ix.ti.ent_sorted.shape[0] == 1
+    qb, ql = _dev(cuda, *pad_queries([b"", b"a", b"z" * (ix.ti.width + 1)], ix.ti.width))
+    got = rank.fused_rank_cuda(ix.ti, qb, ql)
+    assert torch.equal(got, rank.fused_rank_plain(ix.ti, qb, ql))
+
+
+def test_cuda_rank_refuses_too_few_iters(cuda):
+    """K5 returns the lower bound, as a halving search of at least
+    ceil(log2(n + 1)) steps does: the wrapper refuses fewer steps."""
+    keys, ix = _live_index("cuda")
+    ti = ix.ti
+    n = ti.ent_sorted.shape[0]
+    qb, ql = _dev(cuda, *pad_queries(keys[::50], ti.width))
+    few = dataclasses.replace(ti, rank_iters=n.bit_length() - 1)
+    with pytest.raises(ValueError, match="rank_iters"):
+        rank.fused_rank_cuda(few, qb, ql)
+    least = dataclasses.replace(ti, rank_iters=n.bit_length())
+    assert torch.equal(rank.fused_rank_cuda(least, qb, ql), rank.fused_rank_plain(least, qb, ql))
+
+
 _WORD_INDEXES = {}
 
 
-def _word_indexes(width):
-    """The word-path edge case on the card: (empty delta, live delta)."""
-    if width not in _WORD_INDEXES:
+def _word_indexes(width, case=word_edge_case):
+    """An edge case on the card: (empty delta, live delta)."""
+    if (width, case) not in _WORD_INDEXES:
         from repro_torch.index import IndexConfig, StringIndex
 
-        _WORD_INDEXES[width] = word_edge_indexes(StringIndex, IndexConfig, LITSConfig, width,
-                                                 device="cuda")
-    return _WORD_INDEXES[width]
+        _WORD_INDEXES[width, case] = word_edge_indexes(StringIndex, IndexConfig, LITSConfig,
+                                                       width, case, device="cuda")
+    return _WORD_INDEXES[width, case]
 
 
 def _shifted(t, by):
@@ -313,3 +387,84 @@ def test_cuda_word_edge_cases_match_plain(cuda, B, width, pools):
         assert _build.LAUNCHES["fused_search"] == before["fused_search"] + 1
         assert _build.LAUNCHES["scan"] == before["scan"] + 2
 
+
+
+@pytest.mark.parametrize("pools", ["whole", "trimmed", "shifted"])
+@pytest.mark.parametrize("width", [40, 94, 200])
+@pytest.mark.parametrize("B", WORD_BATCHES)
+def test_cuda_rank_word_edge_cases_match_plain(cuda, B, width, pools):
+    """K5 (staged rows, word compares, the multi-way search over the
+    per-rank records K6 shares) equals its plain version on the word-path
+    edge cases: rows at the width and over it (length W + 1), proper
+    prefixes both ways, embedded zeros, bytes >= 0x80, at batch sizes that
+    leave ragged blocks and groups, with whole key pools, pools cut to
+    their used bytes and pools and rows off 16-byte alignment."""
+    empty, _ = _word_indexes(width)
+    _, _, queries, starts = word_edge_case(width)
+    for rows in (queries, starts):
+        ti = empty
+        qb, ql = _dev(cuda, *pad_queries(word_rows(rows, B), width))
+        if pools == "trimmed":
+            ti = trimmed(ti)
+        elif pools == "shifted":
+            ti = dataclasses.replace(ti, key_bytes=_shifted(ti.key_bytes, 3))
+            qb = _shifted(qb, 5)
+        before = _build.LAUNCHES["rank"]
+        got = rank.fused_rank_cuda(ti, qb, ql)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["rank"] == before + 1
+        assert torch.equal(got, rank.fused_rank_plain(ti, qb, ql))
+
+
+@pytest.mark.parametrize("pools", ["whole", "trimmed", "shifted"])
+@pytest.mark.parametrize("width", [1000, 2000, 60000])
+@pytest.mark.parametrize("B", [1, 33, 257])
+def test_cuda_wide_rows_match_plain(cuda, B, width, pools):
+    """K4, K5 and K6 equal their plain versions on rows so wide that a block
+    stages fewer rows than its default: at width 1,000 (K5 and K6 halve
+    their rows), 2,000 (K4 goes below a warp of rows) and 60,000 (one row
+    passes the 48 KB a launch gets by default, and the kernels opt in to
+    more), with an empty and a live delta."""
+    from repro_torch.kernels import scan
+
+    empty, live = _word_indexes(width, wide_edge_case)
+    _, _, queries, starts = wide_edge_case(width)
+    for ti, rows in ((empty, queries), (live, starts)):
+        qb, ql = _dev(cuda, *pad_queries(word_rows(rows, B), width))
+        if pools == "trimmed":
+            ti = trimmed(ti)
+        elif pools == "shifted":
+            ti = dataclasses.replace(ti, key_bytes=_shifted(ti.key_bytes, 3),
+                                     db_bytes=_shifted(ti.db_bytes, 5))
+            qb = _shifted(qb, 5)
+        before = dict(_build.LAUNCHES)
+        for a, b in zip(traverse.fused_search_cuda(ti, qb, ql),
+                        traverse.fused_search_plain(ti, qb, ql)):
+            assert torch.equal(a, b)
+        assert torch.equal(rank.fused_rank_cuda(ti, qb, ql), rank.fused_rank_plain(ti, qb, ql))
+        for a, b in zip(scan.fused_scan_cuda(ti, qb, ql, window=WORD_WINDOW),
+                        scan.fused_scan_plain(ti, qb, ql, window=WORD_WINDOW)):
+            assert torch.equal(a, b)
+        torch.cuda.synchronize()
+        for name in ("fused_search", "rank", "scan"):
+            assert _build.LAUNCHES[name] == before[name] + 1
+
+
+def test_cuda_refuses_rows_too_wide_to_stage(cuda):
+    """K4, K5 and K6 refuse a width whose one staged row would pass the
+    shared memory a block can have, before any launch."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import scan
+
+    W = 240_000
+    ti = SimpleNamespace(width=W)
+    qb = torch.zeros((1, W), dtype=torch.uint8, device=cuda)
+    ql = torch.ones(1, dtype=torch.int32, device=cuda)
+    before = dict(_build.LAUNCHES)
+    for call in (lambda: traverse.fused_search_cuda(ti, qb, ql),
+                 lambda: rank.fused_rank_cuda(ti, qb, ql),
+                 lambda: scan.fused_scan_cuda(ti, qb, ql, window=WORD_WINDOW)):
+        with pytest.raises(ValueError, match="shared memory"):
+            call()
+    assert _build.LAUNCHES == before

@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (WORD_BATCHES_CPU, WORD_WIDTH, WORD_WINDOW, query_rows, scan_entries,
-                          trimmed, word_edge_case, word_edge_indexes, word_rows)
+from _torch_cases import (WORD_BATCHES_CPU, WORD_WIDTH, WORD_WINDOW, nan_equal, query_rows,
+                          scan_entries, short_orders, trimmed, visited_entries, word_edge_case,
+                          word_edge_indexes, word_rows)
 from repro.core import LITSBuilder as RBuilder, LITSConfig as RLITSConfig
 from repro.core import StringSet as RStringSet
 from repro.core import tensor_index as r_ti
@@ -283,6 +284,80 @@ def test_onehot_cdf_equals_reference_kernel_and_k2(max_steps):
         ops.hpt_cdf(args[0], args[1], cdf_tab=args[3], prob_tab=args[4], variant="mxu")
 
 
+def _onehot_rule_cdf(qb, ql, st, cdf_tab, prob_tab, max_steps):
+    """A torch mirror of K7's rule (``csrc/hpt_cdf_onehot.cu``): K2's walk,
+    each value read turned into NaN where its column's count of non-finite
+    entries (:func:`hpt_cdf.nonfinite_columns`), less its own, is positive."""
+    R, C = cdf_tab.shape
+    B, L = qb.shape
+    cdf, prob = torch.zeros(B), torch.ones(B)
+    h = torch.zeros(B, dtype=torch.int64)
+    bad = [hpt_cdf.nonfinite_columns(t) for t in (cdf_tab, prob_tab)]
+    for k in range(min(max_steps, L)):
+        pos = st.long() + k
+        c = qb.gather(1, pos.clamp(0, L - 1)[:, None])[:, 0].long().clamp(max=C - 1)
+        active = pos < ql.long()
+        vals = []
+        for tab, cnt in zip((cdf_tab, prob_tab), bad):
+            v = tab[h & (R - 1), c]
+            vals.append(torch.where(cnt[c] - (~torch.isfinite(v)).int() > 0, float("nan"), v))
+        cdf = cdf + torch.where(active, prob * vals[0], 0.0)
+        prob = prob * torch.where(active, vals[1], 1.0)
+        h = torch.where(active, ((h ^ c) * strops.FNV_PRIME) & strops.U32, h)
+    return cdf
+
+
+NONFINITE_CASES = ("used column", "unused column", "selected entry", "selected inf",
+                   "both tables")
+
+
+@pytest.mark.parametrize("max_steps", [64, 5])
+@pytest.mark.parametrize("case", NONFINITE_CASES)
+def test_onehot_cdf_nonfinite_tables_equal_reference(case, max_steps):
+    """K7's plain version equals the reference's one-hot kernel (interpret
+    mode) bit for bit, NaN equal to NaN, on tables with inf, -inf and NaN
+    entries: in a column the queries use (in another row than the one a
+    query selects), in a column no query uses, at a selected entry itself
+    (NaN or inf), and in both tables at once.  So does a mirror of the count
+    rule that K7 runs.  A step's value is NaN where its column holds a
+    non-finite entry in another row; entries in other columns do not reach
+    it."""
+    qb, ql, st, hpt = query_rows(np.random.default_rng(12), 200, 16, rows=16)
+    R, C = hpt.cdf_tab.shape
+    idx, reads = visited_entries(qb, ql, st, R, C, max_steps)
+    seen = dict(zip(((int(i) // C, int(i) % C) for i in idx), reads.tolist()))
+    unused = [c for c in range(C) if c not in set((idx % C).tolist())]
+    # a selected entry whose column has another row no query reads there
+    rare = min((rc for rc in seen if sum(1 for r, c in seen if c == rc[1]) < R), key=seen.get)
+    other = next(r for r in range(R) if (r, rare[1]) not in seen)
+    cdf_tab, prob_tab = hpt.cdf_tab.copy(), hpt.prob_tab.copy()
+    if case == "used column":
+        cdf_tab[other, rare[1]] = np.inf
+    elif case == "unused column":
+        cdf_tab[3, unused[0]] = -np.inf
+        prob_tab[R - 1, unused[-1]] = np.nan
+    elif case == "selected entry":
+        cdf_tab[rare] = np.nan
+    elif case == "selected inf":
+        cdf_tab[rare] = np.inf
+    else:
+        cdf_tab[other, rare[1]] = -np.inf
+        prob_tab[rare] = np.nan
+        cdf_tab[0, unused[0]] = np.inf
+    want = np.asarray(hpt_cdf_pallas(*(jnp.asarray(x) for x in (qb, ql, st, cdf_tab, prob_tab)),
+                                     max_steps=max_steps, variant="onehot", interpret=True))
+    args = [torch.from_numpy(x) for x in (qb, ql, st, cdf_tab, prob_tab)]
+    got = hpt_cdf.hpt_cdf_onehot_plain(*args, max_steps)
+    assert nan_equal(got.numpy(), want)
+    assert nan_equal(_onehot_rule_cdf(*args, max_steps).numpy(), want)
+    n_bad = int((~np.isfinite(want)).sum())
+    if case == "unused column":
+        assert n_bad == 0
+        np.testing.assert_array_equal(got.numpy(), hpt_cdf.hpt_cdf_plain(*args, max_steps).numpy())
+    else:
+        assert 0 < n_bad < want.shape[0]
+
+
 # -- the word-path edge cases of K6 (tests/_torch_cases.py) ----------------
 
 @functools.lru_cache(maxsize=None)
@@ -337,31 +412,15 @@ def _multiway_rank(qb, ql, srt, off, ln, pool, n_live: int, G: int):
     return lo
 
 
-def _sorted_pool(keys):
-    """Key-order tables over ``keys`` (already sorted, duplicates allowed),
-    padded to one entry when empty, the pool padded as freeze pads it."""
-    W = 8
-    lens = np.array([len(k) for k in keys] or [0], np.int32)
-    off = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int32)
-    pool = np.frombuffer(b"".join(keys) + bytes(W + 1), np.uint8).copy()
-    srt = np.arange(lens.shape[0], dtype=np.int32)
-    return [torch.from_numpy(a) for a in (srt, off, lens, pool)]
-
-
 @pytest.mark.parametrize("G", [4, 8])
 def test_multiway_rank_mirror_equals_rank_sorted(G):
-    """The multi-way search that K6 runs equals core.walk.rank_sorted, the
+    """The multi-way search that K5 and K6 run equals core.walk.rank_sorted, the
     halving search of the reference, on every order length 0..300 with
     duplicates, at the fewest halvings that cover the order
     (ceil(log2(n + 1))) and at the rank_iters freeze gives (ceil(log2 n) + 2)."""
-    rng = np.random.default_rng(90 + G)
-    alphabet = [b"a", b"b", b"\x7f", b"\x80", b"\xff"]
-    for n in range(301):
-        keys = sorted(b"".join(alphabet[int(i)] for i in rng.integers(0, 5, int(m)))
-                      for m in rng.integers(1, 4, n))
-        srt, off, ln, pool = _sorted_pool(keys)
-        queries = keys[::7] + [k + b"a" for k in keys[::11]] + [k[:-1] for k in keys[::13]]
-        queries += [b"", b"\xff\xff\xff\xff", b"a"]
+    for keys, queries, tables in short_orders(90 + G):
+        n = len(keys)
+        srt, off, ln, pool = (torch.from_numpy(a) for a in tables)
         qb, ql = (torch.from_numpy(a) for a in t_ti.pad_queries(queries, 8))
         want = _multiway_rank(qb, ql, srt, off, ln, pool, n, G)
         for iters in {n.bit_length(), int(np.ceil(np.log2(max(n, 1)))) + 2}:
