@@ -13,6 +13,14 @@ size on one 1,000,000-key synthetic URL index:
   delta the write path leaves;
 * the write path: four ``put_batch``/``delete_batch`` rounds of 1,024 ops,
   replayed on a CPU copy of the index;
+* compaction: two more put rounds of never-stored keys, the second of which
+  passes 75% of the delta's entries and merges by itself (epoch 1), then a
+  mixed round and an explicit ``merge()`` (epoch 2), every op and merge
+  replayed on the CPU copy, whose builder is a copy of the card's made
+  before the first write; after each merge every field, the height bound,
+  the sorted order and the lost keys equal, then lookups of every touched
+  key and a range pass against the oracle; each merge's time on the card's
+  clock, with its parts;
 * ``ops.hpt_cdf(variant="onehot")``, the one-hot GetCDF, on the index's HPT
   and again on a copy with inf, -inf and NaN entries in columns the
   queries read and in columns they do not.
@@ -31,10 +39,12 @@ and every scan window answers a host-side oracle; then it times each kernel
 (CUDA events around 50 launches captured in one CUDA graph).
 It exits non-zero on any failure, and when there is no CUDA device.
 
-``--parent`` runs it on a package from before K7's non-finite rule (the
-parent tree of a before/after run): the phase with non-finite tables, which
-such a package's plain version cannot pass, is skipped and says so.
-Without it the phase always runs.
+``--parent`` runs it on an older package (the parent tree of a
+before/after run): the phases that package cannot pass are skipped, each
+with a line that says so: the compaction phase, the check that the
+GetCDF/locate kernels' float ops all flush subnormals, the K7 phase with
+non-finite tables and the kernel-versus-plain checks on the underflow rows.
+Without it every phase runs.
 
 Output: one line per phase, then a JSON line of per-kernel numbers, then
 the last line ``{"ok": true, "device": {...}}``.
@@ -42,10 +52,13 @@ the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import bisect
+import collections
 import contextlib
+import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +128,17 @@ def bound_ms(nbytes: float, flops: float = 0.0):
     float32 operations over the float32 rate."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sass_float_ops(lib) -> dict:
+    """Counts of each form of FMUL, FADD and FFMA in a built library's SASS
+    (``cuobjdump -sass``): the ``.FTZ`` forms flush subnormals."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    return dict(collections.Counter(re.findall(r"\b(F(?:MUL|ADD|FMA)(?:\.[A-Z0-9]+)*)\b", sass)))
 
 
 def max_abs_err(got, want) -> float:
@@ -338,17 +362,27 @@ def decided_at(va, vb, la, lb):
 
 
 class Oracle:
-    """The live key set in Python ``bytes`` order, and per entry its rank there."""
+    """The expected scan order, and per entry its rank there: the live keys
+    in Python ``bytes`` order, and with ``stale`` ({key: (entry id, value)})
+    entries a merge leaves in the sorted order though no walk reaches them
+    (the reference's lost keys): after their key's live entry, if any."""
 
-    def __init__(self, live: dict, ti):
-        self.keys = sorted(live)
-        self.vals = np.array([live[k] for k in self.keys], np.int64)
-        pos = {k: i for i, k in enumerate(self.keys)}
+    def __init__(self, live: dict, ti, stale=None):
+        stale = stale or {}
+        items = sorted([(k, 0, v) for k, v in live.items()]
+                       + [(k, 1, v) for k, (_, v) in stale.items()])
+        self.keys = [k for k, _, _ in items]
+        self.vals = np.array([v for _, _, v in items], np.int64)
+        pos = {}
+        for i, k in enumerate(self.keys):
+            pos.setdefault(k, i)
+        second = {e: k for k, (e, _) in stale.items() if k in live}
         pool = ti.key_bytes.cpu().numpy()
         off, ln = ti.ent_off.cpu().numpy(), ti.ent_len.cpu().numpy()
         self.base_pos = np.full(off.shape[0], -1, np.int64)
         for e in ti.ent_sorted.cpu().numpy().tolist():
-            self.base_pos[e] = pos.get(pool[off[e]: off[e] + ln[e]].tobytes(), -1)
+            k = pool[off[e]: off[e] + ln[e]].tobytes()
+            self.base_pos[e] = pos.get(k, -1) + (second.get(e) == k)
         dpool = ti.db_bytes.cpu().numpy()
         doff, dln = ti.de_off.cpu().numpy(), ti.de_len.cpu().numpy()
         self.delta_pos = np.full(doff.shape[0], -1, np.int64)
@@ -430,6 +464,286 @@ def write_rounds(rng, keys, absent, found_keys, missed, key0, W):
             for kind, ops in rounds]
 
 
+class MergeClock:
+    """Each merge's time on the card's clock (CUDA events recorded on the
+    stream, read after a sync), with its parts: the replay
+    (``LITSBuilder.delete_many``/``insert_many``); within it the model calls
+    (``_positions``/``_values``: row copies, K1/K2 and the results to the
+    host), the sorted order's searches (``_rank_in``) and the height
+    bound's folds (``_update_height_bound``); the refreeze
+    (``tensor_index.freeze``) and within it the upload of the pools
+    (``tensor_index_from_arrays``); and the K1/K2 launches of each merge."""
+
+    PARTS = (("merge", "StringIndex", "merge"), ("replay", "LITSBuilder", "delete_many"),
+             ("replay", "LITSBuilder", "insert_many"), ("model", "LITSBuilder", "_positions"),
+             ("model", "LITSBuilder", "_values"), ("rank", "LITSBuilder", "_rank_in"),
+             ("heights", "LITSBuilder", "_update_height_bound"),
+             ("refreeze", "tensor_index", "freeze"),
+             ("upload", "tensor_index", "tensor_index_from_arrays"))
+
+    def __init__(self):
+        self.events = []      # per merge: {part: [(start, end), ...]}
+        self.launches = []    # per merge: {kernel: launches}
+        self.entries = []     # per merge: the delta entries it replays
+        self.merged = None    # the index the latest merge replayed
+
+    @contextlib.contextmanager
+    def on(self, owners):
+        """Time the calls of ``owners`` ({name: class or module}) inside the block."""
+        from repro_torch.kernels import _build
+
+        saved = [(owners[o], name, getattr(owners[o], name), part)
+                 for part, o, name in self.PARTS]
+
+        def timed(fn, part):
+            def call(*args, **kw):
+                if part == "merge":
+                    self.events.append({})
+                    self.merged = args[0].ti
+                    self.entries.append(int(args[0].ti.de_count))
+                    before = dict(_build.LAUNCHES)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    end.record()
+                    self.events[-1].setdefault(part, []).append((start, end))
+                    if part == "merge":
+                        self.launches.append({k: _build.LAUNCHES[k] - before[k]
+                                              for k in ("hpt_locate", "hpt_cdf")})
+            return call
+
+        for owner, name, fn, part in saved:
+            setattr(owner, name, timed(fn, part))
+        try:
+            yield self
+        finally:
+            for owner, name, fn, _ in saved:
+                setattr(owner, name, fn)
+
+    def ms(self, i: int) -> dict:
+        """Milliseconds of merge ``i`` by part (calls of a part summed)."""
+        torch.cuda.synchronize()
+        return {part: sum(a.elapsed_time(b) for a, b in pairs)
+                for part, pairs in self.events[i].items()}
+
+
+def cpu_builder(builder):
+    """A copy of ``builder`` that computes on the CPU: the same pools, HPT,
+    caches and random state, so that it merges in lockstep with the card's."""
+    tables, builder._tables = builder._tables, None
+    try:
+        out = copy.deepcopy(builder)
+    finally:
+        builder._tables = tables
+    out.device = torch.device("cpu")
+    return out
+
+
+def merge_rounds(rng, absent, used, found_keys, W):
+    """The merge phase's rounds of WRITE_BATCH ops over keys no other phase
+    writes: two rounds of never-stored puts, then a mixed round of puts
+    (never-stored keys, keys the first two rounds put, bulk-loaded keys) and
+    deletes (keys of the second round, bulk-loaded keys, delta-only keys of
+    this round, never-stored keys)."""
+    fresh = [k for k in (absent[i] for i in rng.permutation(len(absent))) if k not in used]
+    pool = sorted(found_keys - used)
+    base = [pool[i] for i in rng.choice(len(pool), WRITE_BATCH // 2, replace=False)]
+    n = WRITE_BATCH
+    r5, r6, new7 = fresh[:n], fresh[n: 2 * n], fresh[2 * n: 2 * n + n // 2]
+    never = fresh[2 * n + n // 2: 2 * n + n // 2 + n // 4]
+    puts7 = new7 + r5[: n // 4] + base[: n // 4]
+    dels7 = r6[: n // 4] + base[n // 4: n // 2] + new7[: n // 4] + never
+    rounds = [("put", r5), ("put", r6), ("put", puts7), ("delete", dels7)]
+    for kind, ops in rounds:
+        if len(ops) != n:
+            fail(f"a merge-phase {kind} round has {len(ops)} ops, not {n}")
+    return [(kind, ops, rng.integers(-(1 << 62), 1 << 62, n) if kind == "put" else None)
+            for kind, ops in rounds]
+
+
+def refusal_explained(ti, cnt0, used0, ops_, i, W) -> bool:
+    """Whether op ``i`` of a batch found the delta full, read from the delta
+    state ``ti`` the batch left (before any merge) and the entry count
+    ``cnt0`` and bytes ``used0`` it started from.  The batch's fresh entries
+    were claimed in op order, so those claimed before op ``i`` are the
+    leading ones whose keys match ops before it.  Then either the entry or
+    the byte pool was full, or every slot of the key's probe chain held an
+    entry of another key claimed before op ``i`` (a slot, once claimed, is
+    never freed within a batch)."""
+    from repro_torch.core.tensor_index import pad_queries
+    from repro_torch.kernels.strops import hash32
+
+    cnt = int(ti.de_count)
+    db = ti.db_bytes.cpu().numpy()
+    off, ln = ti.de_off[:cnt].cpu().numpy(), ti.de_len[:cnt].cpu().numpy()
+    key_of = lambda e: db[off[e]: off[e] + ln[e]].tobytes()
+    claimed, t = [key_of(e) for e in range(cnt0, cnt)], 0
+    for k in ops_[:i]:
+        t += t < len(claimed) and k == claimed[t]
+    limit, used, k = cnt0 + t, used0 + sum(map(len, claimed[:t])), ops_[i]
+    if limit >= ti.de_off.shape[0] or used + len(k) > ti.db_bytes.shape[0]:
+        return True
+    qb, ql = pad_queries([k], W)
+    h = int(hash32(torch.from_numpy(qb), torch.from_numpy(ql))[0])
+    hcap = ti.dh_slot.shape[0]
+    chain = ti.dh_slot.cpu().numpy()[(h + np.arange(ti.delta_probes)) & (hcap - 1)]
+    return all(0 <= e < limit and key_of(e) != k for e in chain.tolist())
+
+
+def same_state(a, b) -> list:
+    """The fields, static fields and builder caches of two indexes that
+    differ (``b`` on the CPU)."""
+    from repro_torch.core.tensor_index import DATA_FIELDS, STATIC_FIELDS
+
+    diff = [f for f in DATA_FIELDS if not torch.equal(getattr(a.ti, f).cpu(), getattr(b.ti, f))]
+    diff += [f for f in STATIC_FIELDS if getattr(a.ti, f) != getattr(b.ti, f)]
+    if a._builder.height_bound() != b._builder.height_bound():
+        diff.append("height_bound()")
+    if not np.array_equal(a._builder.sorted_eids(), b._builder.sorted_eids()):
+        diff.append("sorted_eids()")
+    return diff
+
+
+def merge_phase(index, cpu_index, rounds, live, absent, found_keys, stored, missed, keys,
+                val_of, scan_batches, smi, W):
+    """The compaction phase (step 9 of ``main``): returns each merge's K1/K2
+    launches."""
+    from repro_torch.core.builder import LITSBuilder
+    from repro_torch.core.tensor_index import freeze
+    from repro_torch.index import StringIndex
+    from repro_torch.kernels import _build
+
+    clock = MergeClock()
+    owners = {"StringIndex": StringIndex, "LITSBuilder": LITSBuilder,
+              "tensor_index": sys.modules[freeze.__module__]}
+    rng = np.random.default_rng(SEED + 2)
+    touched = {k for _, ops_, _ in rounds for k in ops_}
+    m_rounds = merge_rounds(rng, absent, touched, found_keys, W)
+    m_ms, m_cpu_s, m_bad, refused, merged_at, fills = [], 0.0, [], [], [], []
+    # entries the merges leave in the sorted order though no walk reaches
+    # them: the bulk load's lost keys (entry ids in key order)
+    sorted_keys = sorted(keys)
+    stale = {k: (bisect.bisect_left(sorted_keys, k), val_of[k]) for k in missed}
+    del sorted_keys
+
+    def check(kind, k, got, want, explained) -> bool:
+        """An op's masks against the oracle's; whether the op took effect.
+        An op that needed a delta slot is refused (both masks False for a
+        put, ``rejected`` for a delete) only where ``explained()`` finds
+        its probe chain or the pools full, as the reference refuses it."""
+        if got == want:
+            return True
+        if (want == (True, False) and got == ((False, False) if kind == "put" else (False, True))
+                and explained()):
+            refused.append(k)
+            return False
+        m_bad.append((kind, k, got, want))
+        return True
+
+    _build.reset_launches()
+    for step, (kind, ops_, vals) in enumerate(m_rounds + [("merge", None, None)]):
+        cnt0, used0 = (int(x) for x in (index.ti.de_count, index.ti.db_used))
+        sync()
+        t = time.perf_counter()
+        with clock.on(owners):
+            if kind == "merge":
+                index.merge()
+                out = (None, None, True)
+            else:
+                out = (index.put_batch(ops_, vals) if kind == "put" else index.delete_batch(ops_))
+        sync()
+        m_ms.append((kind, (time.perf_counter() - t) * 1e3))
+        t = time.perf_counter()
+        if kind == "merge":
+            cpu_index.merge()
+            cpu_out = (None, None, True)
+        else:
+            cpu_out = (cpu_index.put_batch(ops_, vals) if kind == "put"
+                       else cpu_index.delete_batch(ops_))
+        m_cpu_s += time.perf_counter() - t
+        if out[2] != cpu_out[2] or not all(np.array_equal(a, b) for a, b in zip(out[:2],
+                                                                                cpu_out[:2])):
+            fail(f"merge phase: {kind} masks or merged flags differ between the card and the CPU")
+        fills.append(index.delta_fill)
+        # the delta state this batch left: the one its merge replayed, if any
+        delta_ti = clock.merged if out[2] else index.ti
+        clock.merged = None
+        if out[2]:
+            merged_at.append(step)
+            diff = same_state(index, cpu_index)
+            if diff:
+                fail(f"merge {len(merged_at)}: the card and the CPU differ in {diff}")
+        if kind in ("put", "delete"):
+            for i, k in enumerate(ops_):
+                fits = len(k) <= W
+                want = ((fits and k not in live, fits and k in live) if kind == "put"
+                        else (fits and k in live, False))
+                ok = check(kind, k, (bool(out[0][i]), bool(out[1][i])), want,
+                           lambda: refusal_explained(delta_ti, cnt0, used0, ops_, i, W))
+                if ok and fits and kind == "put":
+                    live[k] = int(vals[i])
+                elif ok and kind == "delete":
+                    live.pop(k, None)
+        del delta_ti
+    sync()
+    merge_launches = clock.launches
+    if merged_at != [1, 4] or index.epoch != 2 or m_bad:
+        fail(f"merge phase: merged after steps {merged_at} (want [1, 4]: the second put round "
+             f"by itself, then the explicit merge), epoch {index.epoch}, masks differing from "
+             f"the oracle {len(m_bad)}: {m_bad[:4]}")
+    # every stored and every touched key against the oracle; a live key that
+    # misses must be one the bulk load lost (no walk of the builder reaches
+    # it either), and the CPU copy must miss the same ones.  The reference's
+    # rebuilds can lose keys as its bulk load does, but this seed's merges
+    # lose none, so a key lost here is a fault to compare with the reference
+    touched |= {k for _, ops_, _ in m_rounds for k in ops_}
+    probe = keys + sorted(touched - stored)
+    m_wrong, lost_now = 0, []
+    for b in range(0, len(probe), BATCH):
+        q = probe[b: b + BATCH]
+        found, vals = index.get_batch(q)
+        for k, f, v in zip(q, found.tolist(), vals.tolist()):
+            if f and (k not in live or v != live[k]):
+                m_wrong += 1
+            elif not f and (k in live or k in missed):
+                lost_now.append(k)
+    reachable = sum(index._builder.host_search(k)[0] for k in lost_now)
+    sample = lost_now + [keys[i] for i in rng.choice(N_KEYS, 4096, replace=False)]
+    cpu_found, _ = cpu_index.get_batch(sample)
+    card_found, _ = index.get_batch(sample)
+    merge_lost = sorted(set(lost_now) - missed)
+    say(f"stored_keys_missed={len(lost_now)} after the merges ({len(merge_lost)} not lost by "
+        f"the bulk load: {merge_lost[:8]}; {reachable} of them reachable by the builder's walk)")
+    if m_wrong or reachable or merge_lost or not np.array_equal(cpu_found, card_found):
+        fail(f"after the merges: wrong answers {m_wrong}, missed keys the builder reaches "
+             f"{reachable}, keys a merge lost {len(merge_lost)}, card and CPU answers equal "
+             f"{np.array_equal(cpu_found, card_found)}")
+    for i in range(len(merged_at)):
+        ms = clock.ms(i)
+        say(f"phase merge {i + 1} ({'put_batch, by itself' if i == 0 else 'merge()'}) of "
+            f"{clock.entries[i]} delta entries: {ms['merge']:.1f} ms on the card's clock "
+            f"({smi}): replay {ms.get('replay', 0):.1f} ms, of it model calls "
+            f"{ms.get('model', 0):.1f} ms, sorted-order searches {ms.get('rank', 0):.1f} ms, "
+            f"height-bound folds {ms.get('heights', 0):.1f} ms; refreeze "
+            f"{ms.get('refreeze', 0):.1f} ms, of it upload {ms.get('upload', 0):.1f} ms; "
+            f"launches {merge_launches[i]}")
+        if merge_launches[i]["hpt_locate"] == 0:
+            fail(f"merge {i + 1} launched no K1: it did not place keys on the card")
+    say("phase merge: " + ", ".join(f"{k} {ms:.1f} ms" for k, ms in m_ms)
+        + f"; delta fill after each {', '.join(f'{x:.3f}' for x in fills)}; CPU replay "
+        f"{m_cpu_s:.1f} s, every field, height bound and sorted order equal after each merge; "
+        f"epoch {index.epoch}; ops refused for a full probe chain or pool {len(refused)} "
+        f"{refused}; "
+        f"wrong answers over {len(probe)} stored and touched keys 0")
+    # a range pass over the merged index: the entries of lost keys stay in
+    # the sorted order, after a live entry of the same key
+    range_pass(index, scan_batches, Oracle(live, index.ti, stale), "after the merges",
+               with_rank=False)
+    return merge_launches
+
+
 def main(parent: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -457,10 +771,18 @@ def main(parent: bool = False) -> int:
     say(f"phase card: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build; the GetCDF/locate kernels' float ops must all flush subnormals
     t = time.time()
     _build.build_all()
     say(f"phase build: {len(_build.SOURCES)} libraries in {time.time() - t:.1f} s")
+    if not parent:
+        ops_by_lib = {name: sass_float_ops(_build._lib_path(name))
+                      for name in ("hpt_cdf", "hpt_cdf_onehot", "hpt_locate", "traverse")}
+        say(f"phase build: float32 FMUL/FADD/FFMA in the SASS: {ops_by_lib}")
+        if any("FTZ" not in op.split(".") for ops_ in ops_by_lib.values() for op in ops_):
+            fail("a GetCDF or locate kernel has a float op that keeps subnormals")
+    else:
+        say("phase build: flush check skipped (--parent: the package predates the .ftz ops)")
 
     # 3. data
     t = time.time()
@@ -556,7 +878,8 @@ def main(parent: bool = False) -> int:
     if key0 in missed:
         fail("the key of entry 0 is not reachable")
     found_keys = stored - missed
-    cpu_index = StringIndex(None, dataclasses.replace(
+    # the CPU copy merges with a copy of the card's builder, in lockstep
+    cpu_index = StringIndex(cpu_builder(index._builder), dataclasses.replace(
         ti0, **{f: getattr(ti0, f).cpu() for f in DATA_FIELDS}), IndexConfig(device="cpu"))
     rounds = write_rounds(np.random.default_rng(SEED + 1), keys, absent, found_keys, missed,
                           key0, W)
@@ -634,9 +957,20 @@ def main(parent: bool = False) -> int:
     # K7 on the entry points' paths: no entry point selects variant="onehot"
     onehot_path_launches = sum(d["hpt_cdf_onehot"] for d in (
         main_launches, write_launches, range_launches, launches_live))
+    ti_live = index.ti                   # the index with the write rounds' delta
+
+    # 9. compaction: rounds of never-stored keys until a put_batch merges by
+    #    itself, a mixed round and an explicit merge; every op and merge on
+    #    the CPU copy too, the states equal after each merge
+    if parent:
+        say("phase merge: skipped (--parent: the package predates compaction)")
+        merge_launches = []
+    else:
+        merge_launches = merge_phase(index, cpu_index, rounds, live, absent, found_keys,
+                                     stored, missed, keys, val_of, scan_batches, smi, W)
     del cpu_index
 
-    # 9. one-hot GetCDF path: ops.hpt_cdf(variant="onehot") launches K7, never K2
+    # 10. one-hot GetCDF path: ops.hpt_cdf(variant="onehot") launches K7, never K2
     qb_np, ql_np = pad_queries(batches[0], W)
     qb, ql = torch.from_numpy(qb_np).to(dev), torch.from_numpy(ql_np).to(dev)
     B = qb.shape[0]
@@ -681,7 +1015,7 @@ def main(parent: bool = False) -> int:
         if not 0 < n_nan < B:
             fail(f"{n_nan} of {B} outputs NaN: the non-finite columns were not read as planned")
 
-    # 10. each kernel against its plain version at its path's shapes
+    # 11. each kernel against its plain version at its path's shapes
     results, inputs = {}, {}
     got = traverse.fused_search_cuda(ti, qb, ql)
     results["fused_search"] = (got, traverse.fused_search_plain(ti, qb, ql))
@@ -723,6 +1057,35 @@ def main(parent: bool = False) -> int:
                               (cnode_probe.cnode_probe_plain(*args),))
     inputs["cnode_probe"] = (args, cnode_probe.cnode_probe_cuda, cnode_probe.cnode_probe_plain)
 
+    # K2, K1 and K7 on rows whose prob underflows, and K4 over an index of
+    # keys whose GetCDF underflows (tests/_torch_cases.py), checked only
+    if not parent:
+        from _torch_cases import edge_cdf_rows, underflow_keys, underflow_table
+
+        for table in ("underflow", "underflow_hpt"):
+            uqb, uql, ust, uct, upt, ua, ub, um = (torch.from_numpy(a).to(dev)
+                                                   for a in edge_cdf_rows(W, table))
+            args = (uqb, uql, ust, uct, upt, steps)
+            for name, kern, plain in (
+                    ("hpt_cdf", hpt_cdf.hpt_cdf_cuda, hpt_cdf.hpt_cdf_plain),
+                    ("hpt_cdf_onehot", hpt_cdf.hpt_cdf_onehot_cuda, hpt_cdf.hpt_cdf_onehot_plain)):
+                results[f"{name}, {table} rows"] = ((kern(*args),), (plain(*args),))
+            args = (uqb, uql, ust, ua, ub, um, uct, upt, steps)
+            results[f"hpt_locate, {table} rows"] = ((hpt_locate.hpt_locate_cuda(*args),),
+                                                    (hpt_locate.hpt_locate_plain(*args),))
+        from repro_torch.core.hpt import HPT
+
+        ukeys = underflow_keys(SEED, 20_000)
+        ubuild = LITSBuilder(hpt=HPT(*underflow_table()), device=DEVICE)
+        ubuild.bulkload(StringSet.from_list(ukeys))
+        uti = freeze(ubuild)
+        uq = ukeys + [k + b"a" for k in ukeys[::3]] + [k[:-1] for k in ukeys[::5]]
+        uqb, uql = (torch.from_numpy(a).to(dev) for a in pad_queries(uq, uti.width))
+        results["fused_search, keys whose GetCDF underflows"] = (
+            traverse.fused_search_cuda(uti, uqb, uql), traverse.fused_search_plain(uti, uqb, uql))
+    else:
+        say("phase kernels: underflow rows skipped (--parent: the package predates the flush)")
+
     sqb, sql = index._queries(first)
     k5 = rank.fused_rank_cuda(ti0, sqb, sql)
     rank_trace, scan_trace, scan_empty_trace = [], {}, {}
@@ -731,10 +1094,10 @@ def main(parent: bool = False) -> int:
         (ranks0[::32].cpu(), k5[::32].cpu()), (torch.from_numpy(want_rank),) * 2)
     inputs["rank"] = ((ti0, sqb, sql), rank.fused_rank_cuda, rank.fused_rank_plain)
     for label, t_i, tr in (("scan, empty delta", ti0, scan_empty_trace),
-                           ("scan", index.ti, scan_trace)):
+                           ("scan", ti_live, scan_trace)):
         results[label] = (scan.fused_scan_cuda(t_i, sqb, sql, window=WINDOW),
                           scan.fused_scan_plain(t_i, sqb, sql, window=WINDOW, trace=tr))
-    inputs["scan"] = ((index.ti, sqb, sql), lambda *a: scan.fused_scan_cuda(*a, window=WINDOW),
+    inputs["scan"] = ((ti_live, sqb, sql), lambda *a: scan.fused_scan_cuda(*a, window=WINDOW),
                       lambda *a: scan.fused_scan_plain(*a, window=WINDOW))
     sync()
     for name, (g, w) in results.items():
@@ -743,7 +1106,7 @@ def main(parent: bool = False) -> int:
         if not same:
             fail(f"{name} differs from its plain version")
 
-    # 11. the bulk load's K2/K1 calls, recorded in a second build of the same
+    # 12. the bulk load's K2/K1 calls, recorded in a second build of the same
     #     keys and replayed at their own shapes, one CUDA graph per kernel;
     #     each output against the build's and the plain version
     model_calls = ModelCalls()
@@ -773,7 +1136,7 @@ def main(parent: bool = False) -> int:
             fail(f"{r['launches']} {name} calls recorded, {main_launches[name]} launched "
                  "on the main path")
 
-    # 12. structure: the card's build (K1/K2) equals the CPU's (plain), array for array
+    # 13. structure: the card's build (K1/K2) equals the CPU's (plain), array for array
     sub = [keys[i] for i in np.sort(rng.choice(N_KEYS, N_SUBSET, replace=False))]
     ss = StringSet.from_list(sub)
     t = time.time()
@@ -793,7 +1156,7 @@ def main(parent: bool = False) -> int:
     if diff or bg.root_item != bc.root_item:
         fail(f"cuda and cpu builds differ: {diff}")
 
-    # 13. times at each path's shapes; bytes and operations this run's data needs
+    # 14. times at each path's shapes; bytes and operations this run's data needs
     levels = results["fused_search"][0][2]
     hit = results["fused_search"][0][0]
     nbytes = {
@@ -812,7 +1175,7 @@ def main(parent: bool = False) -> int:
     nbytes["cnode_probe"] = B * (K * 4 + 16)
     # rank: query rows in, ranks out, and what the searches must read of the
     # order and its pools (PoolReads, from the plain version's trace)
-    lt = index.ti
+    lt = ti_live
     base = PoolReads(ti0.ent_sorted, ti0.ent_off, ti0.ent_len, ti0.key_bytes)
     base.ranked(sqb, sql, rank_trace)
     nbytes["rank"] = B * (W + 8) + base.total()
@@ -862,6 +1225,7 @@ def main(parent: bool = False) -> int:
             rows[-1]["bulk_load_replay"] = {k: replay[name][k] for k in (
                 "launches", "rows", "median_rows", "ms", "ms_per_launch", "floor_ms",
                 "bound_ms")}
+            rows[-1]["merge_launches"] = [m[name] for m in merge_launches]
         say(f"phase times: {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.5f} ms "
             f"by {b_by}, {nbytes[name]} bytes, {flops[name]:.0f} float ops), "
             f"path launches {launches[name]}")
@@ -891,7 +1255,7 @@ def main(parent: bool = False) -> int:
         f"scan_batch {scans_empty:.0f} scans/s (empty delta), {scans_live:.0f} scans/s "
         "(live delta)")
 
-    # 14. where one get_batch's time goes: each stage alone, a sync after it
+    # 15. where one get_batch's time goes: each stage alone, a sync after it
     q = batches[1]
     split = {}
 
@@ -926,5 +1290,7 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", action="store_true",
-                    help="skip the phase that needs K7's non-finite rule")
+                    help="skip the phases an older package cannot pass: compaction, the "
+                         "flush check of the float ops, K7's non-finite tables and the "
+                         "underflow rows")
     sys.exit(main(ap.parse_args().parent))

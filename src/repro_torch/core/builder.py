@@ -1,13 +1,20 @@
-"""Host-side LITS builder: bulkload (paper Sec. 3.1, Alg. 2).
+"""Host-side LITS builder: bulkload and dynamic operations (paper Sec. 3.1,
+Alg. 2/3).
 
-A copy of the bulk-load half of :class:`repro.core.builder.LITSBuilder`.
-The builder owns growable numpy pools (structure of arrays, with tagged
-32-bit items in place of the paper's tagged 64-bit pointers) and builds:
+A copy of :class:`repro.core.builder.LITSBuilder` (less its float64 host
+models).  The builder owns growable numpy pools (structure of arrays, with
+tagged 32-bit items in place of the paper's tagged 64-bit pointers) and
+implements:
 
 * bulkload: sample → HPT → recursive top-down build with PMSS decisions,
 * collision-driven model-based nodes (LIPP): no last-mile search,
 * compact leaf nodes (≤16 key-sorted h-pointers),
-* critbit subtries.
+* critbit subtries,
+* insert/delete/update with path-count resizing (Alg. 3 incCount, the 2×
+  rule) and local rebuilds, one key at a time or in bulk
+  (:meth:`LITSBuilder.insert_many`/:meth:`LITSBuilder.delete_many`, the
+  merge's replay), keeping the sorted entry order and the height bound
+  that ``freeze`` reads up to date.
 
 Slot positions come from :func:`repro_torch.core.hpt.positions` on the
 builder's ``device``: K1 on the card, the plain version on the CPU.  Both
@@ -15,13 +22,19 @@ equal the reference's float32 ``positions_jnp`` bit for bit, so the pools
 equal the reference's array for array, including where the reference loses
 keys: ``_build_mnode`` groups runs of equal positions and assumes the
 positions never decrease, which float32 rounding of the CDF can break by an
-ulp; a later run then overwrites an earlier run's slot.
+ulp; a later run then overwrites an earlier run's slot.  The lost key stays
+in the sorted order until a rebuild walks its subtree.
+
+A bulk walk copies its keys to the device once and computes each model
+node's slot positions for the whole batch in one call, when the walk first
+reaches that node: K1 runs once per distinct node visited.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import sys
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +57,11 @@ TAG_TRIE = 4
 
 PAYLOAD_BITS = 28
 PAYLOAD_MASK = (1 << PAYLOAD_BITS) - 1
+
+# Alg. 3 incCount + resize (LIPP rule): a model node is rebuilt once it holds
+# RESIZE_GROW times its slots in keys, or fewer than RESIZE_SHRINK times them
+RESIZE_GROW = 2.0
+RESIZE_SHRINK = 0.2
 
 
 def make_item(tag: int, payload: int = 0) -> int:
@@ -157,8 +175,14 @@ class LITSBuilder:
         self.n_keys = 0
         self.max_suffix_len = 1  # longest (key - node prefix) any mnode models
         self._tables = None
+        # the sorted entry order and the height bound, kept across mutations
+        # so that a merge's refreeze never walks the whole structure; None
+        # means unknown, recomputed exactly on next use
         self._sorted_cache: Optional[np.ndarray] = None  # live eids, key order
         self._hb: Optional[dict] = None                  # {"base","trie"} bound
+        # a bulk walk's position memo: its rows on the device, the row being
+        # walked, and per model node the positions of every row
+        self._bulk_pos: Optional[dict] = None
 
     # ------------------------------------------------------------------
     # model values / positions (on the builder's device)
@@ -189,13 +213,59 @@ class LITSBuilder:
         cdf_tab, prob_tab = self._dev_tables()
         return positions(cdf_tab, prob_tab, qb, ql, start, alpha, beta, m).cpu().numpy()
 
+    def _node_pos(self, nid: int, q: np.ndarray, qlen: int, pl: int, m: int) -> int:
+        """Model slot position of one key at model node ``nid``.  A single
+        key pays one ``_positions`` call; inside a bulk walk the batch's
+        positions at this node are computed once, over all its rows, and
+        memoized.  The per-row math is the same, so is the position."""
+        alpha, beta = float(self.mn_alpha.data[nid]), float(self.mn_beta.data[nid])
+        bp = self._bulk_pos
+        if bp is None:
+            qb, ql = self._query_rows(q[None, :], np.array([qlen], np.int32))
+            return int(self._positions(qb, ql, pl, alpha, beta, m)[0])
+        tab = bp["memo"].get(nid)
+        if tab is None:
+            tab = bp["memo"][nid] = self._positions(*bp["rows"], pl, alpha, beta, m)
+        return int(tab[bp["row"]])
+
+    def _bulk_rows(self, keys: Sequence[bytes]) -> None:
+        """Start a bulk walk over ``keys``: their rows go to the device once."""
+        W = self.width
+        qb = np.zeros((len(keys), W), np.uint8)
+        ql = np.zeros(len(keys), np.int32)
+        for i, k in enumerate(keys):
+            kb = np.frombuffer(k[:W], np.uint8)
+            qb[i, : kb.shape[0]] = kb
+            ql[i] = len(k)
+        self._bulk_pos = {"rows": self._query_rows(qb, ql), "row": 0, "memo": {}}
+
     # ------------------------------------------------------------------
     # entries
     # ------------------------------------------------------------------
+    def _add_entry_bytes(self, key: np.ndarray, klen: int, val: int) -> int:
+        off = self.key_bytes.extend(key[:klen])
+        self.ent_off.append(off)
+        self.ent_len.append(klen)
+        self.ent_val.append(val)
+        return self.ent_off.n - 1
+
     def key_at(self, eid: int) -> bytes:
         off = int(self.ent_off.data[eid])
         ln = int(self.ent_len.data[eid])
         return self.key_bytes.data[off : off + ln].tobytes()
+
+    def entry_matrix(self, eids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(n, width) zero-padded key bytes and lengths of entries ``eids``
+        (byte indices clamped into the key pool, as the reference's)."""
+        eids = np.asarray(eids, np.int64)
+        offs = self.ent_off.data[eids]
+        lens = self.ent_len.data[eids]
+        W = self.width
+        idx = offs[:, None] + np.arange(W)[None, :]
+        idx = np.minimum(idx, max(self.key_bytes.n - 1, 0))
+        mat = self.key_bytes.data[idx]
+        mask = np.arange(W)[None, :] < lens[:, None]
+        return (mat * mask).astype(np.uint8), lens.astype(np.int32)
 
     # ------------------------------------------------------------------
     # bulkload (paper Sec. 3.1)
@@ -244,11 +314,13 @@ class LITSBuilder:
     # ------------------------------------------------------------------
     # recursive group build with PMSS decision
     # ------------------------------------------------------------------
-    def _build_group(self, eids: np.ndarray, bytes_mat: np.ndarray, lens: np.ndarray,
-                     force_mnode: bool = False) -> int:
+    def _build_group(self, eids: np.ndarray, bytes_mat: Optional[np.ndarray] = None,
+                     lens: Optional[np.ndarray] = None, force_mnode: bool = False) -> int:
         n = len(eids)
         if n == 0:
             return make_item(TAG_EMPTY)
+        if bytes_mat is None:
+            bytes_mat, lens = self.entry_matrix(eids)
         if n == 1:
             return make_item(TAG_ENTRY, int(eids[0]))
         if n <= self.cfg.cnode_cap and not force_mnode:
@@ -331,17 +403,452 @@ class LITSBuilder:
         return rec(0, len(eids))
 
     # ------------------------------------------------------------------
+    # host search (the oracle; the device walk is in tensor_index.py)
+    # ------------------------------------------------------------------
+    def _pad_query(self, key: bytes) -> Tuple[np.ndarray, int]:
+        q = np.zeros(self.width, np.uint8)
+        kb = np.frombuffer(key[: self.width], np.uint8)
+        q[: kb.shape[0]] = kb
+        return q, len(key)
+
+    def _trie_descend(self, item: int, q: np.ndarray, qlen: int) -> int:
+        while item_tag(item) == TAG_TRIE:
+            tid = item_payload(item)
+            cb = int(self.tr_byte.data[tid])
+            c = int(q[cb]) if cb < min(qlen, self.width) else 0
+            if c & int(self.tr_mask.data[tid]):
+                item = int(self.tr_right.data[tid])
+            else:
+                item = int(self.tr_left.data[tid])
+        return item
+
+    def _child_loc(self, nid: int, key: bytes, q: np.ndarray, qlen: int) -> int:
+        """The items-pool slot a key takes at model node ``nid``: the first
+        or last slot for keys below or above the node's prefix, else its
+        model position."""
+        pl = int(self.mn_prefix_len.data[nid])
+        poff = int(self.mn_prefix_off.data[nid])
+        prefix = self.key_bytes.data[poff : poff + pl].tobytes()
+        kp = key[:pl]
+        base = int(self.mn_slot_base.data[nid])
+        m = int(self.mn_slot_cnt.data[nid])
+        if kp < prefix:
+            return base
+        if kp > prefix:
+            return base + m - 1
+        return base + self._node_pos(nid, q, qlen, pl, m)
+
+    def host_search(self, key: bytes) -> Tuple[bool, int]:
+        q, qlen = self._pad_query(key)
+        item = self.root_item
+        while True:
+            tag = item_tag(item)
+            if tag == TAG_EMPTY:
+                return False, -1
+            if tag == TAG_ENTRY:
+                eid = item_payload(item)
+                return (self.key_at(eid) == key), eid
+            if tag == TAG_CNODE:
+                cid = item_payload(item)
+                base, cnt = int(self.cn_base.data[cid]), int(self.cn_cnt.data[cid])
+                h = int(key_hash16(q[None, :], np.array([qlen], np.int32))[0])
+                for j in range(cnt):
+                    if int(self.ch_hash.data[base + j]) == h:
+                        eid = int(self.ch_ent.data[base + j])
+                        if self.key_at(eid) == key:
+                            return True, eid
+                return False, -1
+            if tag == TAG_TRIE:
+                item = self._trie_descend(item, q, qlen)
+                continue
+            item = int(self.items.data[self._child_loc(item_payload(item), key, q, qlen)])
+
+    def get(self, key: bytes) -> Optional[int]:
+        found, eid = self.host_search(key)
+        return int(self.ent_val.data[eid]) if found else None
+
+    # ------------------------------------------------------------------
+    # insert / delete / update (paper Alg. 3)
+    # ------------------------------------------------------------------
+    def _insert_walk(self, key: bytes, val: int):
+        """Structural insert without the Alg. 3 incCount/resize pass.
+
+        Returns ``(inserted, path, loc, eid)``: ``path`` is the model-node
+        chain walked, as ``(node id, item location of that node)``; ``loc``
+        the item location whose content changed (-1 is the root, a tuple a
+        trie child link, else an index into the items pool); ``eid`` the
+        new entry, or on a duplicate key the existing one.
+        """
+        if len(key) > self.width:
+            raise ValueError("key longer than index width; rebuild with larger width")
+        q, qlen = self._pad_query(key)
+        path: List[Tuple[int, int]] = []
+        loc = -1
+        item = self.root_item
+        while True:
+            tag = item_tag(item)
+            if tag == TAG_EMPTY:
+                eid = self._add_entry_bytes(q, qlen, val)
+                self._set_item(loc, make_item(TAG_ENTRY, eid))
+                return True, path, loc, eid
+            if tag == TAG_ENTRY:
+                eid = item_payload(item)
+                if self.key_at(eid) == key:
+                    return False, path, loc, eid
+                neid = self._add_entry_bytes(q, qlen, val)
+                pair = np.array([eid, neid], np.int64)
+                bm, ls = self.entry_matrix(pair)
+                o = sort_order(StringSet(bm, ls))
+                self._set_item(loc, self._build_cnode(pair[o], bm[o], ls[o]))
+                return True, path, loc, neid
+            if tag == TAG_CNODE:
+                inserted, eid = self._cnode_insert(loc, item, key, q, qlen, val)
+                return inserted, path, loc, eid
+            if tag == TAG_TRIE:
+                inserted, eid = self._trie_insert(loc, item, key, q, qlen, val)
+                return inserted, path, loc, eid
+            nid = item_payload(item)
+            path.append((nid, loc))
+            loc = self._child_loc(nid, key, q, qlen)
+            item = int(self.items.data[loc])
+
+    def insert(self, key: bytes, val: int) -> bool:
+        inserted, path, _loc, _eid = self._insert_walk(key, val)
+        if not inserted:
+            return False
+        self.n_keys += 1
+        self._sorted_cache = None
+        self._hb = None
+        # incCount + resize (Alg. 3): rebuild the topmost node past the 2x rule
+        for nid, _ in path:
+            self.mn_nkeys.data[nid] += 1
+        for nid, nloc in path:
+            if self.mn_nkeys.data[nid] >= RESIZE_GROW * self.mn_slot_cnt.data[nid]:
+                self._rebuild_at(nloc, make_item(TAG_MNODE, nid))
+                break
+        return True
+
+    def _cnode_insert(self, loc, item: int, key: bytes, q, qlen, val):
+        cid = item_payload(item)
+        base, cnt = int(self.cn_base.data[cid]), int(self.cn_cnt.data[cid])
+        eids = self.ch_ent.data[base : base + cnt].astype(np.int64)
+        keys = [self.key_at(int(e)) for e in eids]
+        p = bisect.bisect_left(keys, key)
+        if p < cnt and keys[p] == key:
+            return False, int(eids[p])
+        neid = self._add_entry_bytes(q, qlen, val)
+        new_eids = np.insert(eids, p, neid)
+        bm, ls = self.entry_matrix(new_eids)
+        if cnt < self.cfg.cnode_cap:
+            # a fresh slab of cnt + 1 (paper Sec. 3.3, no pre-allocation)
+            self._set_item(loc, self._build_cnode(new_eids, bm, ls))
+        else:
+            # full: PMSS decides model-based node or subtrie (Sec. 3.4 scenario 2)
+            self._set_item(loc, self._build_group(new_eids, bm, ls))
+        return True, neid
+
+    def _trie_insert(self, loc, item: int, key: bytes, q, qlen, val):
+        leaf = self._trie_descend(item, q, qlen)
+        leid = item_payload(leaf)
+        lkey = self.key_at(leid)
+        if lkey == key:
+            return False, leid
+        lq = np.zeros(self.width, np.uint8)
+        lb = np.frombuffer(lkey, np.uint8)
+        lq[: lb.shape[0]] = lb
+        diff = q.astype(np.int32) ^ lq.astype(np.int32)
+        p = int((diff != 0).argmax())
+        b = int(diff[p]).bit_length() - 1
+        mask = 1 << b
+        newdir = 1 if (int(q[p]) & mask) else 0
+        neid = self._add_entry_bytes(q, qlen, val)
+        # walk again, stopping where the new critbit node belongs
+        cur_loc, cur = loc, item
+        while item_tag(cur) == TAG_TRIE:
+            tid = item_payload(cur)
+            cb, cm = int(self.tr_byte.data[tid]), int(self.tr_mask.data[tid])
+            if (cb, -cm) > (p, -mask):  # the new discriminating bit is more significant
+                break
+            c = int(q[cb]) if cb < min(qlen, self.width) else 0
+            if c & cm:
+                cur_loc, cur = ("trie_r", tid), int(self.tr_right.data[tid])
+            else:
+                cur_loc, cur = ("trie_l", tid), int(self.tr_left.data[tid])
+        nitem = make_item(TAG_ENTRY, neid)
+        left, right = (cur, nitem) if newdir else (nitem, cur)
+        tid = self.tr_byte.append(p)
+        self.tr_mask.append(mask)
+        self.tr_left.append(left)
+        self.tr_right.append(right)
+        self._set_item(cur_loc, make_item(TAG_TRIE, tid))
+        return True, neid
+
+    def _item_at(self, loc) -> int:
+        if loc == -1:
+            return int(self.root_item)
+        if isinstance(loc, tuple):
+            kind, tid = loc
+            return int(self.tr_left.data[tid] if kind == "trie_l" else self.tr_right.data[tid])
+        return int(self.items.data[loc])
+
+    def _set_item(self, loc, item: int) -> None:
+        if loc == -1:
+            self.root_item = item
+        elif isinstance(loc, tuple):
+            kind, tid = loc
+            if kind == "trie_l":
+                self.tr_left.data[tid] = item
+            else:
+                self.tr_right.data[tid] = item
+        else:
+            self.items.data[loc] = item
+
+    def _rebuild_at(self, loc, item: int) -> None:
+        eids = np.array(list(self.iter_subtree(item)), np.int64)
+        self._set_item(loc, self._build_group(eids))
+
+    def _delete_walk(self, key: bytes):
+        """Structural delete without the shrink-resize pass.  Returns
+        ``(removed, path, loc, eid)`` as :meth:`_insert_walk` does; ``eid``
+        is the entry unlinked (the entry pool keeps its bytes)."""
+        q, qlen = self._pad_query(key)
+        path: List[Tuple[int, int]] = []
+        loc = -1
+        item = self.root_item
+        while True:
+            tag = item_tag(item)
+            if tag == TAG_EMPTY:
+                return False, path, loc, -1
+            if tag == TAG_ENTRY:
+                eid = item_payload(item)
+                if self.key_at(eid) != key:
+                    return False, path, loc, -1
+                self._set_item(loc, make_item(TAG_EMPTY))
+                return True, path, loc, eid
+            if tag == TAG_CNODE:
+                cid = item_payload(item)
+                base, cnt = int(self.cn_base.data[cid]), int(self.cn_cnt.data[cid])
+                eids = self.ch_ent.data[base : base + cnt].astype(np.int64)
+                keep = [int(e) for e in eids if self.key_at(int(e)) != key]
+                if len(keep) == cnt:
+                    return False, path, loc, -1
+                gone = next(int(e) for e in eids if self.key_at(int(e)) == key)
+                if len(keep) == 1:
+                    self._set_item(loc, make_item(TAG_ENTRY, keep[0]))
+                else:
+                    arr = np.array(keep, np.int64)
+                    bm, ls = self.entry_matrix(arr)
+                    self._set_item(loc, self._build_cnode(arr, bm, ls))
+                return True, path, loc, gone
+            if tag == TAG_TRIE:
+                removed, eid = self._trie_delete(loc, item, key, q, qlen)
+                return removed, path, loc, eid
+            nid = item_payload(item)
+            path.append((nid, loc))
+            loc = self._child_loc(nid, key, q, qlen)
+            item = int(self.items.data[loc])
+
+    def _shrinks(self, nid: int) -> bool:
+        m = int(self.mn_slot_cnt.data[nid])
+        k = self.mn_nkeys.data[nid]
+        return m > self.cfg.min_slots and k < RESIZE_SHRINK * m and k >= 0
+
+    def delete(self, key: bytes) -> bool:
+        removed, path, _loc, _eid = self._delete_walk(key)
+        if not removed:
+            return False
+        self.n_keys -= 1
+        self._sorted_cache = None
+        self._hb = None
+        for nid, _ in path:
+            self.mn_nkeys.data[nid] -= 1
+        for nid, nloc in path:
+            if self._shrinks(nid):
+                self._rebuild_at(nloc, make_item(TAG_MNODE, nid))
+                break
+        return True
+
+    def _trie_delete(self, loc, item: int, key: bytes, q, qlen):
+        # walk, remembering the parent's side, then splice the sibling up
+        parent = None  # (tid, side)
+        cur = item
+        while item_tag(cur) == TAG_TRIE:
+            tid = item_payload(cur)
+            cb, cm = int(self.tr_byte.data[tid]), int(self.tr_mask.data[tid])
+            c = int(q[cb]) if cb < min(qlen, self.width) else 0
+            side = 1 if (c & cm) else 0
+            parent = (tid, side)
+            cur = int(self.tr_right.data[tid]) if side else int(self.tr_left.data[tid])
+        if item_tag(cur) != TAG_ENTRY or self.key_at(item_payload(cur)) != key:
+            return False, -1
+        gone = item_payload(cur)
+        tid, side = parent  # a trie item always has >= 2 leaves
+        sibling = int(self.tr_left.data[tid]) if side else int(self.tr_right.data[tid])
+        # find the link to tid
+        gp_loc, gcur = loc, item
+        while True:
+            gtid = item_payload(gcur)
+            if gtid == tid:
+                self._set_item(gp_loc, sibling)
+                return True, gone
+            cb, cm = int(self.tr_byte.data[gtid]), int(self.tr_mask.data[gtid])
+            c = int(q[cb]) if cb < min(qlen, self.width) else 0
+            if c & cm:
+                gp_loc, gcur = ("trie_r", gtid), int(self.tr_right.data[gtid])
+            else:
+                gp_loc, gcur = ("trie_l", gtid), int(self.tr_left.data[gtid])
+
+    def update(self, key: bytes, val: int) -> bool:
+        found, eid = self.host_search(key)
+        if not found:
+            return False
+        self.ent_val.data[eid] = val
+        return True
+
+    # ------------------------------------------------------------------
+    # bulk replay (the merge's path)
+    # ------------------------------------------------------------------
+    def _rank_in(self, sorted_arr: np.ndarray, key: bytes) -> int:
+        """First index i with key_at(sorted_arr[i]) >= key."""
+        lo, hi = 0, sorted_arr.shape[0]
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if self.key_at(int(sorted_arr[mid])) < key:
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
+
+    def insert_many(self, keys: Sequence[bytes], vals: np.ndarray) -> np.ndarray:
+        """Bulk upsert: insert each new key, overwrite the value of existing
+        ones.  Returns the per-key inserted mask (False: a value update).
+
+        The structural edits run key by key, in key order, but the Alg. 3
+        incCount/resize pass runs once at the end, so a subtree that many
+        keys reach rebuilds once; the sorted order takes one batched splice
+        and the height bound folds in the heights of the subtrees that
+        changed, so the next ``freeze`` walks nothing whole.
+        """
+        n0 = len(keys)
+        inserted = np.zeros(n0, bool)
+        if n0 == 0:
+            return inserted
+        sorted_arr = self.sorted_eids()
+        hb = dict(self.height_bound())
+        # unknown until the batch completes: an exception midway leaves the
+        # structure partly replayed, and the next freeze must walk it exactly
+        self._sorted_cache = None
+        self._hb = None
+        # key order, so that the batched splice keeps equal ranks in order
+        order = sorted(range(n0), key=lambda i: keys[i])
+        paths: List[List[Tuple[int, int]]] = []
+        dirty: dict = {}        # changed item location -> model-node depth there
+        ranks: List[int] = []
+        new_eids: List[int] = []
+        self._bulk_rows(keys)
+        try:
+            for i in order:
+                key = keys[i]
+                self._bulk_pos["row"] = i
+                ok, path, loc, eid = self._insert_walk(key, int(vals[i]))
+                if not ok:
+                    self.ent_val.data[eid] = int(vals[i])  # upsert: refresh
+                    continue
+                inserted[i] = True
+                self.n_keys += 1
+                new_eids.append(eid)
+                ranks.append(self._rank_in(sorted_arr, key))
+                for nid, _ in path:
+                    self.mn_nkeys.data[nid] += 1
+                paths.append(path)
+                dirty[loc] = len(path)
+        finally:
+            self._bulk_pos = None
+        # the deferred resize: the topmost node past the rule on each path;
+        # a node an earlier rebuild restructured no longer holds its slot
+        for path in paths:
+            for depth, (nid, nloc) in enumerate(path):
+                if self.mn_nkeys.data[nid] >= RESIZE_GROW * self.mn_slot_cnt.data[nid]:
+                    if self._item_at(nloc) == make_item(TAG_MNODE, nid):
+                        self._rebuild_at(nloc, make_item(TAG_MNODE, nid))
+                        dirty[nloc] = depth
+                    break
+        if new_eids:
+            sorted_arr = np.insert(sorted_arr, np.asarray(ranks, np.int64),
+                                   np.asarray(new_eids, np.int64))
+        self._sorted_cache = sorted_arr
+        self._update_height_bound(hb, dirty)
+        return inserted
+
+    def delete_many(self, keys: Sequence[bytes]) -> np.ndarray:
+        """Bulk delete, with :meth:`insert_many`'s deferred resize and
+        cache upkeep.  Returns the per-key removed mask."""
+        n0 = len(keys)
+        removed = np.zeros(n0, bool)
+        if n0 == 0:
+            return removed
+        sorted_arr = self.sorted_eids()
+        hb = dict(self.height_bound())
+        self._sorted_cache = None
+        self._hb = None
+        paths: List[List[Tuple[int, int]]] = []
+        dirty: dict = {}
+        gone: List[int] = []
+        self._bulk_rows(keys)
+        try:
+            for i in range(n0):
+                self._bulk_pos["row"] = i
+                ok, path, loc, eid = self._delete_walk(keys[i])
+                if not ok:
+                    continue
+                removed[i] = True
+                self.n_keys -= 1
+                gone.append(eid)
+                for nid, _ in path:
+                    self.mn_nkeys.data[nid] -= 1
+                paths.append(path)
+                dirty[loc] = len(path)
+        finally:
+            self._bulk_pos = None
+        for path in paths:
+            for depth, (nid, nloc) in enumerate(path):
+                if self._shrinks(nid):
+                    if self._item_at(nloc) == make_item(TAG_MNODE, nid):
+                        self._rebuild_at(nloc, make_item(TAG_MNODE, nid))
+                        dirty[nloc] = depth
+                    break
+        if gone:
+            sorted_arr = sorted_arr[~np.isin(sorted_arr, np.asarray(gone, np.int64))]
+        self._sorted_cache = sorted_arr
+        self._update_height_bound(hb, dirty)
+        return removed
+
+    def _update_height_bound(self, hb: dict, dirty: dict) -> None:
+        """Fold the heights of the changed subtrees into the cached bound.
+        The rest is covered by the previous bound, and deletes only shrink
+        a subtree, so the maximum stays an upper bound, possibly a loose
+        one: ``freeze`` takes the walk's iteration bound from it."""
+        for loc, depth in dirty.items():
+            b, t = self._subtree_heights(self._item_at(loc), depth)
+            hb["base"] = max(hb["base"], b)
+            hb["trie"] = max(hb["trie"], t)
+        self._hb = hb
+
+    # ------------------------------------------------------------------
     # sorted order + height bound (what freeze needs)
     # ------------------------------------------------------------------
     def sorted_eids(self) -> np.ndarray:
-        """Entry ids in key order (``iter_subtree(root)`` after bulkload)."""
+        """Live entry ids in key order (``iter_subtree(root)`` after a bulk
+        load or a full walk), kept across mutations by the bulk ops."""
         if self._sorted_cache is None:
             self._sorted_cache = np.fromiter(
                 self.iter_subtree(self.root_item), dtype=np.int64, count=-1)
         return self._sorted_cache
 
     def height_bound(self) -> dict:
-        """``heights()``, cached; ``freeze`` derives the walk's bound from it."""
+        """An upper bound on ``heights()``: exact after a bulk load or a
+        full walk, kept by the bulk ops (:meth:`_update_height_bound`);
+        ``freeze`` derives the walk's bound from it."""
         if self._hb is None:
             self._hb = self.heights()
         return self._hb

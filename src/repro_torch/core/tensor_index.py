@@ -3,7 +3,7 @@
 ``freeze`` exports a :class:`TensorIndex` (a dataclass of flat tensors on
 one device) from a host :class:`~repro_torch.core.builder.LITSBuilder`.  It
 has the data fields and ``STATIC_FIELDS`` of :class:`repro.core.tensor_index.TensorIndex`.
-The reference's operations, less compaction:
+The reference's operations:
 
 * :func:`search_batch`  — paper Alg. 2, batched point lookup with the
   delta-buffer probe
@@ -14,6 +14,8 @@ The reference's operations, less compaction:
 * :func:`insert_batch` / :func:`delete_batch` — the write path: upserts and
   tombstones in the delta buffer, in op order
 * :func:`delta_sort_order` — the sorted view of the claimed delta entries
+* :func:`merge_delta` — compaction: the delta replayed into the host
+  builder, then a refreeze
 
 The tensors' device decides the kernels: K4 (``csrc/traverse.cu``), K5
 (``csrc/rank.cu``) and K6 (``csrc/scan.cu``) on the card, the plain
@@ -506,3 +508,47 @@ def delta_fill_fraction(ti: TensorIndex) -> float:
     """Claimed share of the delta entry pool.  Syncs with the device; the
     facade keeps a host mirror instead."""
     return float(ti.de_count) / ti.de_off.shape[0]
+
+
+def merge_delta(builder: LITSBuilder, ti: TensorIndex, *,
+                sync_base_values: bool = False) -> TensorIndex:
+    """Compaction: replay the delta buffer into the host builder and refreeze.
+
+    One copy of the three delta scalars, then one of the live delta region
+    (never the whole pools); the tombstones replay as one
+    ``builder.delete_many``, the live entries as one upserting
+    ``builder.insert_many``.  Both bulk ops keep the builder's sorted order
+    and height bound, so the refreeze walks nothing whole.
+
+    ``sync_base_values=True`` first copies the base values that
+    :func:`insert_batch` updated in place back into the builder, over the
+    entries both hold (after an aborted replay the builder may hold more).
+    A builder in entry-id lockstep with ``ti`` must pass it, or those
+    updates revert; a builder rebuilt from the live pools already has them.
+
+    The returned index, on ``ti``'s device, starts an empty delta buffer of
+    the same sizing and carries ``epoch = ti.epoch + 1``.
+    """
+    cnt, used, epoch = torch.stack(
+        [ti.de_count.long(), ti.db_used.long(), ti.epoch.long()]).cpu().tolist()
+    if sync_base_values:
+        n = min(builder.ent_val.n, ti.ent_val_lo.shape[0])
+        if n:
+            lo, hi = torch.stack([ti.ent_val_lo[:n], ti.ent_val_hi[:n]]).cpu().numpy()
+            builder.ent_val.data[:n] = ((hi.astype(np.int64) << 32)
+                                        | lo.view(np.uint32).astype(np.int64))
+    if cnt:
+        db = ti.db_bytes[: max(used, 1)].cpu().numpy()
+        offs, lens, vlo, vhi, tomb = torch.stack([
+            ti.de_off[:cnt], ti.de_len[:cnt], ti.de_val_lo[:cnt], ti.de_val_hi[:cnt],
+            ti.de_tomb[:cnt].int()]).cpu().numpy()
+        keys = [db[o: o + n].tobytes() for o, n in zip(offs.tolist(), lens.tolist())]
+        vals = (vhi.astype(np.int64) << 32) | vlo.view(np.uint32).astype(np.int64)
+        dead = tomb != 0
+        if dead.any():
+            builder.delete_many([k for k, d in zip(keys, dead) if d])
+        if not dead.all():
+            builder.insert_many([k for k, d in zip(keys, dead) if not d], vals[~dead])
+    return freeze(builder, delta_capacity=ti.de_off.shape[0],
+                  delta_bytes=ti.db_bytes.shape[0], delta_probes=ti.delta_probes,
+                  epoch=epoch + 1, device=ti.device)

@@ -10,17 +10,18 @@ point lookups, writes and range scans:
   device index; :meth:`StringIndex.from_builder` wraps a loaded builder.
 * :meth:`StringIndex.get_batch` / :meth:`StringIndex.get` — point lookups.
 * :meth:`StringIndex.put_batch` / :meth:`StringIndex.delete_batch` — upserts
-  and tombstones in the device delta buffer.
+  and tombstones in the device delta buffer; a batch that leaves the delta
+  at ``auto_merge_threshold`` of its entries, or that overflowed it, merges.
 * :meth:`StringIndex.scan_batch` — delta-aware range scans.
+* :meth:`StringIndex.merge` — compaction: the delta replayed into the host
+  builder, a refreeze, the swap; composed of ``begin_merge``/``run_merge``/
+  ``commit_merge`` (or ``abort_merge``), between which writes land on the
+  live index and are journaled, then replayed onto the merged one.
 
-Compaction is not ported yet, so nothing merges the delta buffer: the port
-behaves as the reference with ``IndexConfig(auto_merge_threshold=None)``,
-``put_batch``/``delete_batch`` report ``merged=False``, and a full delta
-buffer rejects further claims (``delta_overflowed``).
-
-The device decides the path: on the card the builder places keys with K2/K1,
-lookups and the write path's base walk run K4, ranks K5 and scans K6; on the
-CPU the plain versions run.  Both give the reference's answers bit for bit.
+The device decides the path: on the card the builder places keys with K2/K1
+(bulk loads and a merge's replay), lookups and the write path's base walk
+run K4, ranks K5 and scans K6; on the CPU the plain versions run.  Both give
+the reference's answers bit for bit.
 """
 from __future__ import annotations
 
@@ -31,10 +32,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.builder import LITSBuilder, LITSConfig
+from repro_torch.core.hpt import uniform_hpt
 from repro_torch.core.strings import StringSet
 from repro_torch.core.tensor_index import (
-    TensorIndex, delete_batch, freeze, insert_batch, lookup_values, pad_queries, scan_batch,
-    search_batch,
+    TensorIndex, delete_batch, freeze, insert_batch, lookup_values, merge_delta, pad_queries,
+    scan_batch, search_batch,
 )
 from repro_torch.kernels._build import resolve_device
 
@@ -47,8 +49,54 @@ class IndexConfig:
     delta_capacity: int = 4096           # delta-buffer entry pool size
     delta_bytes: Optional[int] = None    # delta byte pool (None: capacity-derived)
     delta_probes: int = 16               # open-addressing probe bound
+    auto_merge_threshold: Optional[float] = 0.75  # None disables auto-compaction
     builder: Optional[LITSConfig] = None  # host build policy (cnode cap, HPT shape)
     device: str = "cuda"                 # where the index lives and the kernels run
+
+
+@dataclasses.dataclass(frozen=True)
+class MergeTicket:
+    """One open merge epoch: the index ``run_merge`` replays (writes meanwhile
+    land on the live index and are journaled), its epoch, and whether the
+    builder was rebuilt from the pools for it (its values are then current)."""
+
+    ti: TensorIndex
+    epoch: int
+    builder_fresh: bool
+
+
+def _coalesce_journal(journal: list) -> list:
+    """Consecutive journal batches of one kind joined, in arrival order, so
+    that the commit replays each run of puts or deletes as one batch."""
+    out: list = []
+    for kind, qb, ql, lo, hi in journal:
+        if out and out[-1][0] == kind:
+            k, pqb, pql, plo, phi = out[-1]
+            out[-1] = (k, np.concatenate([pqb, qb]), np.concatenate([pql, ql]),
+                       None if lo is None else np.concatenate([plo, lo]),
+                       None if hi is None else np.concatenate([phi, hi]))
+        else:
+            out.append((kind, qb, ql, lo, hi))
+    return out
+
+
+def _pad_batch_pow2(qb, ql, lo, hi):
+    """A replayed batch padded to a power-of-two row count, as the reference
+    pads it.  Pad rows carry the over-width length sentinel (``width + 1``),
+    which no stored key has: the write path claims nothing for them.  They
+    are ops all the same, and not base puts, so they can make a base put to
+    entry 0 in the batch lost, as in the reference (ROADMAP Queue 3)."""
+    real = qb.shape[0]
+    cap = 1 << max(real - 1, 0).bit_length()
+    if cap == real:
+        return qb, ql, lo, hi
+    pad = cap - real
+    qb = np.concatenate([qb, np.zeros((pad, qb.shape[1]), qb.dtype)])
+    ql = np.concatenate([ql, np.full(pad, qb.shape[1] + 1, ql.dtype)])
+    if lo is not None:
+        lo = np.concatenate([lo, np.zeros(pad, lo.dtype)])
+        hi = np.concatenate([hi, np.zeros(pad, hi.dtype)])
+    return qb, ql, lo, hi
 
 
 def _split_np(vals: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -69,9 +117,14 @@ class StringIndex:
 
     def __init__(self, builder: Optional[LITSBuilder], ti: TensorIndex,
                  config: IndexConfig):
-        self._builder = builder
+        self._builder = builder        # None: rebuilt from the pools at the first merge
         self.ti = ti
         self.config = config
+        self.merge_count = 0
+        self._host_pool = None         # host copies of (key_bytes, ent_off, ent_len)
+        # None while no merge is open; else the writes landed since
+        # begin_merge, replayed onto the merged index at commit_merge
+        self._merge_journal: Optional[list] = None
         # host mirrors of the delta fill, the latched overflow flag and the
         # epoch, so that reading them never syncs with the device
         self._mirror(self._delta_state().cpu())
@@ -138,9 +191,10 @@ class StringIndex:
         return self.ti.nbytes()
 
     def _queries(self, keys: Sequence[bytes]):
-        qb, ql = pad_queries(list(keys), self.ti.width)
-        dev = self.ti.device
-        return torch.from_numpy(qb).to(dev), torch.from_numpy(ql).to(dev)
+        return self._to_device(*pad_queries(list(keys), self.ti.width))
+
+    def _to_device(self, *arrays):
+        return [torch.from_numpy(a).to(self.ti.device) for a in arrays]
 
     def _finish_write(self, a, b) -> Tuple[np.ndarray, np.ndarray]:
         """One device-to-host copy of two op masks and the delta state."""
@@ -165,31 +219,39 @@ class StringIndex:
         New keys go to the device delta buffer; keys live in the base or in
         the delta get their value updated in place; a put on a deleted key
         resurrects it (inserted).  Over-width keys and puts that find the
-        delta buffer full come back with both masks False.  ``merged`` is
-        always False: there is no auto-merge until compaction is ported.
+        delta buffer full come back with both masks False.  ``merged`` says
+        that the batch then merged the delta (:meth:`_maybe_merge`).
         """
         if not len(keys):
             return np.zeros(0, bool), np.zeros(0, bool), False
-        qb, ql = self._queries(keys)
-        lo, hi = (torch.from_numpy(x).to(self.ti.device)
-                  for x in _split_np(np.asarray(values, np.int64)))
-        self.ti, ins, upd = insert_batch(self.ti, qb, ql, lo, hi)
+        qb, ql = pad_queries(list(keys), self.ti.width)
+        lo, hi = _split_np(np.asarray(values, np.int64))
+        self.ti, ins, upd = insert_batch(self.ti, *self._to_device(qb, ql, lo, hi))
         ins, upd = self._finish_write(ins, upd)
-        return ins, upd, False
+        if self._merge_journal is not None:
+            # only the accepted ops: a refused one was reported refused
+            acc = ins | upd
+            if acc.any():
+                self._merge_journal.append(("put", qb[acc], ql[acc], lo[acc], hi[acc]))
+        return ins, upd, self._maybe_merge()
 
     def delete_batch(self, keys: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray, bool]:
         """Deletes: (deleted mask, rejected-full mask, merged).
 
         A key in the delta gets its tombstone set in place; a key that lives
         only in the frozen base claims a tombstone entry that shadows it.
-        Gets and scans see the delete at once.  ``merged`` is always False.
+        Gets and scans see the delete at once.  ``merged`` as in
+        :meth:`put_batch`.
         """
         if not len(keys):
             return np.zeros(0, bool), np.zeros(0, bool), False
-        qb, ql = self._queries(keys)
-        self.ti, deleted, rejected = delete_batch(self.ti, qb, ql)
+        qb, ql = pad_queries(list(keys), self.ti.width)
+        self.ti, deleted, rejected = delete_batch(self.ti, *self._to_device(qb, ql))
         deleted, rejected = self._finish_write(deleted, rejected)
-        return deleted, rejected, False
+        if self._merge_journal is not None and deleted.any():
+            # only the deletes that took effect: the others change nothing
+            self._merge_journal.append(("delete", qb[deleted], ql[deleted], None, None))
+        return deleted, rejected, self._maybe_merge()
 
     def scan_batch(self, starts: Sequence[bytes], window: int):
         """Delta-aware range scans: ``(eids, valid, is_delta)``, each
@@ -203,3 +265,115 @@ class StringIndex:
     def get(self, key: bytes) -> Optional[int]:
         found, vals = self.get_batch([key])
         return int(vals[0]) if found[0] else None
+
+    # -- compaction --------------------------------------------------------
+
+    def merge(self) -> None:
+        """Compaction: replay the delta buffer into the host builder,
+        refreeze, swap.  Runs by itself from ``put_batch``/``delete_batch``
+        at ``config.auto_merge_threshold``."""
+        ticket = self.begin_merge()
+        try:
+            new_ti = self.run_merge(ticket)
+        except BaseException:
+            self.abort_merge(ticket)
+            raise
+        self.commit_merge(ticket, new_ti)
+
+    def begin_merge(self) -> MergeTicket:
+        """Open a merge epoch: keep the current index for the replay and
+        start the journal.  One merge may be open at a time."""
+        if self._merge_journal is not None:
+            raise RuntimeError("a merge epoch is already open")
+        self._merge_journal = []
+        return MergeTicket(ti=self.ti, epoch=self._epoch, builder_fresh=self._builder is None)
+
+    def run_merge(self, ticket: MergeTicket) -> TensorIndex:
+        """Replay the ticket's delta into the builder and refreeze; reads the
+        ticket's index and the builder, never the live ``self.ti``."""
+        builder = self._ensure_builder(ticket.ti)
+        # a builder in lockstep with the index takes the base values that
+        # puts updated in place; one rebuilt just now read them already
+        return merge_delta(builder, ticket.ti, sync_base_values=not ticket.builder_fresh)
+
+    def commit_merge(self, ticket: MergeTicket, new_ti: TensorIndex) -> int:
+        """Swap the merged index in and replay the journal onto it in arrival
+        order, each run of one kind as one batch padded to a power of two.
+        Returns the number of ops replayed."""
+        journal, self._merge_journal = self._merge_journal or [], None
+        redrained = 0
+        for kind, qb, ql, lo, hi in _coalesce_journal(journal):
+            real = qb.shape[0]
+            redrained += real
+            qb, ql, lo, hi = _pad_batch_pow2(qb, ql, lo, hi)
+            for attempt in (0, 1):
+                if kind == "put":
+                    new_ti, ins, upd = insert_batch(new_ti, *self._to_device(qb, ql, lo, hi))
+                    clean = bool((ins | upd)[:real].all())
+                else:
+                    new_ti, _, rej = delete_batch(new_ti, *self._to_device(qb, ql))
+                    clean = not bool(rej[:real].any())
+                if clean:
+                    break
+                if attempt:
+                    # refused against an empty delta: the batch alone is larger
+                    # than the pool, and its ops were acknowledged
+                    raise RuntimeError(
+                        "re-drain rejected acknowledged ops even after a fold-down "
+                        "merge; delta pool too small for the journal batch")
+                # the fresh delta filled during the replay: fold it down, retry
+                new_ti = merge_delta(self._ensure_builder(), new_ti, sync_base_values=True)
+        self.ti = new_ti
+        self.merge_count += 1
+        self._host_pool = None
+        self._mirror(self._delta_state().cpu())
+        return redrained
+
+    def abort_merge(self, ticket: MergeTicket) -> None:
+        """Close a merge epoch without a swap; the journal is dropped."""
+        self._merge_journal = None
+
+    def _maybe_merge(self) -> bool:
+        """Merge when the delta fill reached the threshold or a write was
+        refused; not with the policy off, nor inside an open merge epoch
+        (whose commit replays this write)."""
+        thr = self.config.auto_merge_threshold
+        if thr is None or self._merge_journal is not None:
+            return False
+        if self._overflowed or self._delta_fill >= thr:
+            self.merge()
+            return True
+        return False
+
+    def _ensure_builder(self, ti: Optional[TensorIndex] = None) -> LITSBuilder:
+        """The host builder, rebuilt when there is none from the live
+        entries of ``ti`` (default: the live index) with the live index's
+        key pool.  A rebuilt builder trains its HPT anew, so entry ids after
+        the merge may differ; keys and values do not."""
+        if self._builder is None:
+            ti = self.ti if ti is None else ti
+            pool, ent_off, ent_len = self._host_entries()
+            if int(ti.root_item) == 0:
+                # no live entry: freeze pads ent_sorted with entry 0, which
+                # may be a deleted key that must not come back
+                b = LITSBuilder(config=self.config.builder, hpt=uniform_hpt(),
+                                device=self.config.device)
+                b.width = ti.width
+                b._sorted_cache = np.zeros(0, np.int64)
+                self._builder = b
+                return b
+            eids = ti.ent_sorted.cpu().numpy().astype(np.int64)
+            vals = _join_values(ti.ent_val_lo.cpu().numpy(), ti.ent_val_hi.cpu().numpy())
+            keys = [pool[ent_off[i]: ent_off[i] + ent_len[i]].tobytes() for i in eids]
+            b = LITSBuilder(config=self.config.builder, device=self.config.device)
+            b.bulkload(StringSet.from_list(keys), vals[eids], width=ti.width)
+            self._builder = b
+        return self._builder
+
+    def _host_entries(self):
+        """Host copies of the live index's key pool and entry table, kept
+        until the next merge."""
+        if self._host_pool is None:
+            self._host_pool = tuple(t.cpu().numpy() for t in (
+                self.ti.key_bytes, self.ti.ent_off, self.ti.ent_len))
+        return self._host_pool

@@ -16,7 +16,7 @@
 // pieces): some 8 ms at best, 200 times what the function needs.  Instead
 // this is K2's walk (lits_cdf_group.cuh: a group of 8 lanes per query, the
 // row's bytes in one coalesced pass, FNV states folded from shuffles, all
-// table reads in flight, the sum in step order with __fmul_rn/__fadd_rn),
+// table reads in flight, the sum in step order with mul_ftz/add_ftz),
 // with a hook that turns a value read into NaN where
 // count[c] - !isfinite(tab[row, c]) > 0; the wrapper makes the (C,) count
 // of non-finite entries per column once per table (kernels/hpt_cdf.py,

@@ -12,7 +12,7 @@
 // would not fit shared memory.  The GetCDF is K2's group walk
 // (lits_cdf_group.cuh: G lanes per query, the walk's table reads in flight
 // together, the sum in step order); the lane that holds the sum applies
-// lits::locate (__fmaf_rn, saturating __float2int_rd).
+// lits::locate (fma_ftz, saturating __float2int_rd).
 #include "lits_cdf_group.cuh"
 
 namespace {

@@ -17,7 +17,7 @@
 //   4. every lane runs the sum in the reference's order, k = 0 upward, over
 //      the values taken from their owners with __shfl_sync:
 //      cdf = cdf + prob * cval; prob = prob * pval, each op rounded on its
-//      own (__fmul_rn, __fadd_rn).  No tree or warp reduction: a reordered
+//      own (mul_ftz, add_ftz).  No tree or warp reduction: a reordered
 //      float32 sum would move slots.
 // Steps past the query's end are inactive and add nothing, as in the
 // reference; they form a suffix, since a step is active while
@@ -131,8 +131,8 @@ __device__ __forceinline__ float group_cdf(const uint8_t* __restrict__ q, int L,
         const float cval = __shfl_sync(kFullMask, cv[r], j, G);
         const float pval = __shfl_sync(kFullMask, pv[r], j, G);
         if (base + r * G + j < n_act) {
-          cdf = __fadd_rn(cdf, __fmul_rn(prob, cval));
-          prob = __fmul_rn(prob, pval);
+          cdf = add_ftz(cdf, mul_ftz(prob, cval));
+          prob = mul_ftz(prob, pval);
         }
       }
     }

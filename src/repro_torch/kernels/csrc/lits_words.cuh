@@ -380,8 +380,8 @@ __device__ __forceinline__ float cdf_row(const uint8_t* qb, int W, int qlen, int
 #pragma unroll
     for (int r = 0; r < kCdfBatch; ++r) {
       if (base + r < n_act) {
-        cdf = __fadd_rn(cdf, __fmul_rn(prob, v[r].x));
-        prob = __fmul_rn(prob, v[r].y);
+        cdf = add_ftz(cdf, mul_ftz(prob, v[r].x));
+        prob = mul_ftz(prob, v[r].y);
       }
     }
   }

@@ -27,7 +27,10 @@ made once per table (:func:`nonfinite_columns`).  The plain version does
 the contraction as the reference does.
 
 Numerics: ``cdf += prob * cval`` is two separately rounded float32 ops (the
-reference does not contract it to an FMA), and ``prob *= pval``.  A step is
+reference does not contract it to an FMA), and ``prob *= pval``.  Each op
+flushes subnormals as XLA on the CPU does (:func:`mul_ftz`, :func:`add_ftz`):
+a subnormal operand counts as a zero of its sign and a subnormal result
+becomes one, so a ``prob`` that underflows is 0, and 0 times an inf is NaN.  A step is
 active while ``start + k < qlen``; the character index is clamped to
 ``L - 1`` and the character to ``C - 1``; the row is the uint32 FNV-1a state
 ``& (R - 1)``.  The walk takes ``min(max_steps, L)`` steps.
@@ -42,6 +45,32 @@ from . import _build
 from .strops import FNV_PRIME, U32
 
 MAX_CDF_STEPS = 64
+_TINY = 2.0 ** -126  # the smallest normal float32
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with subnormal float32 values replaced by zeros of their sign."""
+    return torch.where(x.abs() < _TINY, x * 0, x)
+
+
+def mul_ftz(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b`` of flushed operands (:func:`flush_subnormal`), its
+    result flushed when the product, rounded to 24 bits with an unbounded
+    exponent, is below 2**-126 (tininess after rounding, the rule of x86's
+    flush and of the card's ``mul.ftz``): a product just below 2**-126 that
+    rounds up to it is kept.  Scaled by 2**64 the product rounds in the
+    normal range, where that rounding is float32's own; an operand large
+    enough to overflow the scaling makes a product far above 2**-126."""
+    a, b = flush_subnormal(a), flush_subnormal(b)
+    r = a * b
+    return torch.where(((a * 2.0 ** 64) * b).abs() < 2.0 ** -62, r * 0, r)
+
+
+def add_ftz(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 ``a + b`` of flushed operands, its result flushed.  A sum of
+    normal float32 values below 2**-126 is exact, so no rounding rule is
+    needed."""
+    return flush_subnormal(flush_subnormal(a) + flush_subnormal(b))
 
 
 def hpt_cdf_plain(qbytes, qlens, start, cdf_tab, prob_tab,
@@ -63,8 +92,8 @@ def hpt_cdf_plain(qbytes, qlens, start, cdf_tab, prob_tab,
         idx = (h & (R - 1)) * C + c
         cval = flat_cdf[idx]
         pval = flat_prob[idx]
-        cdf = cdf + torch.where(active, prob * cval, 0.0)
-        prob = prob * torch.where(active, pval, 1.0)
+        cdf = add_ftz(cdf, torch.where(active, mul_ftz(prob, cval), 0.0))
+        prob = mul_ftz(prob, torch.where(active, pval, 1.0))
         h = torch.where(active, ((h ^ c) * FNV_PRIME) & U32, h)
     return cdf
 
@@ -74,7 +103,8 @@ def hpt_cdf_onehot_plain(qbytes, qlens, start, cdf_tab, prob_tab,
     """Plain one-hot GetCDF: per step a (B, R) row one-hot times each table
     (a true float32 product, never TF32, in which a zero weight on a
     non-finite entry gives NaN), then the step's column of the product,
-    selected alone."""
+    selected alone.  Subnormal table entries are flushed first, as the
+    reference's contraction flushes its operands."""
     R, C = cdf_tab.shape
     B, L = qbytes.shape
     dev = qbytes.device
@@ -84,6 +114,7 @@ def hpt_cdf_onehot_plain(qbytes, qlens, start, cdf_tab, prob_tab,
     prob = torch.ones(B, dtype=torch.float32, device=dev)
     h = torch.zeros(B, dtype=torch.int64, device=dev)
     rows = torch.arange(R, device=dev)[None, :]
+    tabs = flush_subnormal(cdf_tab), flush_subnormal(prob_tab)
     precision = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
     try:
@@ -92,10 +123,9 @@ def hpt_cdf_onehot_plain(qbytes, qlens, start, cdf_tab, prob_tab,
             c = qbytes.gather(1, pos.clamp(0, L - 1)[:, None])[:, 0].long().clamp(max=C - 1)
             active = pos < qlens
             row_oh = (rows == (h & (R - 1))[:, None]).float()
-            cval = torch.matmul(row_oh, cdf_tab).gather(1, c[:, None])[:, 0]
-            pval = torch.matmul(row_oh, prob_tab).gather(1, c[:, None])[:, 0]
-            cdf = cdf + torch.where(active, prob * cval, 0.0)
-            prob = prob * torch.where(active, pval, 1.0)
+            cval, pval = (torch.matmul(row_oh, t).gather(1, c[:, None])[:, 0] for t in tabs)
+            cdf = add_ftz(cdf, torch.where(active, mul_ftz(prob, cval), 0.0))
+            prob = mul_ftz(prob, torch.where(active, pval, 1.0))
             h = torch.where(active, ((h ^ c) * FNV_PRIME) & U32, h)
     finally:
         torch.set_float32_matmul_precision(precision)

@@ -20,25 +20,17 @@ import ctypes
 import torch
 
 from . import _build
-from .hpt_cdf import MAX_CDF_STEPS, hpt_cdf_plain
+from .hpt_cdf import MAX_CDF_STEPS, flush_subnormal, hpt_cdf_plain
 
 _I32_MIN, _I32_MAX = -2147483648, 2147483647
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once, as a hardware FMA does.
-
-    The float64 product of two float32 values is exact.  TwoSum gives the
-    float64 sum ``s`` and its exact error ``e``.  Rounding ``s`` to float32
-    is then correct except where ``s`` sits exactly halfway between two
-    float32 values while ``e != 0``: there the exact sum lies on the side
-    of ``e``'s sign, and round-to-even may have picked the other side.
-    """
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    bv = s - p
-    e = (p - (s - bv)) + (cd - bv)
+def _round_f32(s: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """float32 rounding of the exact sum ``s + e`` of a float64 ``s`` and
+    its TwoSum error ``e``.  Rounding ``s`` alone is correct except where
+    ``s`` sits exactly halfway between two float32 values while ``e != 0``:
+    there the exact sum lies on the side of ``e``'s sign, and round-to-even
+    may have picked the other side."""
     r = s.float()
     rd = r.double()
     inf = torch.full_like(r, float("inf"))
@@ -47,6 +39,27 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     up = torch.maximum(r, other)
     down = torch.minimum(r, other)
     return torch.where(tie, torch.where(e > 0, up, down), r)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a hardware FMA does, with
+    subnormals flushed as XLA on the CPU flushes them: subnormal operands
+    count as zeros of their sign, and a result that rounds (24 bits, an
+    unbounded exponent) below 2**-126 becomes one.
+
+    The float64 product of two float32 values is exact, and TwoSum gives
+    the float64 sum ``s`` and its exact error ``e``.  Scaled by 2**64 the
+    pair rounds in float32's normal range, which decides the flush.
+    """
+    a, b, c = flush_subnormal(a), flush_subnormal(b), flush_subnormal(c)
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    e = (p - (s - bv)) + (cd - bv)
+    r = _round_f32(s, e)
+    tiny = _round_f32(s * 2.0 ** 64, e * 2.0 ** 64).abs() < 2.0 ** -62
+    return torch.where(tiny, r * 0, r)
 
 
 def slot_positions(cdf, alpha, beta, nslots) -> torch.Tensor:

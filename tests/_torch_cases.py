@@ -105,7 +105,101 @@ def scan_entries(ti, eids, valid, is_delta):
 # Batch sizes at which a group of G lanes per query can go wrong: one
 # query, part of a warp or block, one past, and a full batch.
 CDF_GROUP_BATCHES = (1, 7, 28, 31, 32, 33, 255, 256, 257, 65536)
-CDF_TABLES = ("hpt", "uniform1", "cols256", "ties", "clamped")
+CDF_TABLES = ("hpt", "uniform1", "cols256", "ties", "clamped", "underflow", "underflow_hpt")
+
+
+def underflow_table():
+    """A one-row HPT whose characters make ``prob`` underflow in chosen ways
+    (characters below ``a`` have probability 0).  With ``prob`` kept
+    subnormal instead of flushed as XLA on the CPU flushes it, each pattern
+    of :data:`UNDERFLOW_PATTERNS` gives another CDF."""
+    cdf = np.zeros(128, np.float32)
+    prob = np.zeros(128, np.float32)
+    entries = {
+        "a": (0.0, 2.0 ** -7),                      # 18 of them: prob 2**-126
+        "b": (0.5, 2.0 ** -7),
+        "c": (0.0, 2.0 ** -63),                     # two: prob exactly 2**-126
+        "d": (1 - 2.0 ** -24, 0.5),                 # 2**-126 * d: rounds to 2**-126, a tie
+        "e": (0.0, 2.0 ** -63 * (1 + 2.0 ** -23)),
+        "f": (1 - 2.0 ** -23, 0.5),                 # after "ce": rounds up to 2**-126, kept
+        "g": (0.0, 2.0 ** -63 * (1 - 2.0 ** -24)),  # after "c": prob rounds to 2**-126, a tie
+        "h": (2.0 ** -130, 0.5),                    # a subnormal table cdf
+        "i": (0.0, 2.0 ** -140),                    # a subnormal table prob
+        "k": (1.0, 2.0 ** 100),
+        "m": (0.25, 0.75),
+    }
+    for ch, (c, pr) in entries.items():
+        cdf[ord(ch)], prob[ord(ch)] = c, pr
+    return cdf[None, :], prob[None, :]
+
+
+def underflow_keys(seed: int, n: int):
+    """Sorted keys over :func:`underflow_table`'s ``a``, ``b``, ``d``, ``f``
+    and ``m``: ``n`` draws of one to three runs of up to 29 ``a`` (CDF 0,
+    probability 2**-7) each closed by another character, so that a GetCDF
+    from the start of a long run underflows, and ``a`` * k + ``b`` for k in
+    15..24 (19 and more underflow)."""
+    rng = np.random.default_rng(seed)
+    tail = np.frombuffer(b"bdfm", np.uint8)
+    keys = {b"a" * k + b"b" for k in range(15, 25)}
+    for _ in range(n):
+        keys.add(b"".join(b"a" * int(rng.integers(0, 30)) + bytes([int(rng.choice(tail))])
+                          for _ in range(int(rng.integers(1, 4)))))
+    return sorted(keys)
+
+
+# Rows of the one-row :func:`underflow_table`, with the CDF XLA on the CPU
+# gives (``prob`` flushed when it underflows) beside the one a walk that
+# keeps subnormals gives.
+UNDERFLOW_PATTERNS = (
+    b"a" * 19 + b"b",        # 0; kept: 2**-134
+    b"a" * 18 + b"b",        # 0 (2**-127 flushed)
+    b"a" * 17 + b"b",        # 2**-120, both
+    b"ccd",                  # 0: the product rounds to 2**-126 only in subnormal steps
+    b"cef",                  # 2**-126: rounded to 24 bits it is 2**-126
+    b"cgk",                  # 0; kept: 2**-126
+    b"h",                    # 0; kept: 2**-130
+    b"ik",                   # 0; kept: 2**-40
+    b"ak" + b"a" * 17 + b"b" + b"m",
+    b"m" + b"a" * 30 + b"k",
+)
+
+
+def _underflow_rows(L: int, n: int, _rng):
+    """``edge_cdf_rows`` for the underflow tables: ``underflow`` cycles
+    :data:`UNDERFLOW_PATTERNS` over the crafted one-row table; alpha and
+    beta put the slot of a CDF of 2**-126 one above that of a CDF of 0;
+    ``underflow_hpt`` runs up to 60 zero bytes (column 0, whose CDF is 0 in
+    every row), then one to three other bytes, over a 1024 x 128 HPT built
+    from random zero-free rows, in which about ten zero bytes make ``prob``
+    underflow."""
+    qb = np.zeros((n, L), np.uint8)
+    ql = np.zeros(n, np.int32)
+    for i in range(n):
+        pat = UNDERFLOW_PATTERNS[i % len(UNDERFLOW_PATTERNS)]
+        qb[i, : len(pat)] = np.frombuffer(pat, np.uint8)
+        ql[i] = len(pat)
+    cdf_tab, prob_tab = underflow_table()
+    return (qb, ql, cdf_tab, prob_tab, np.full(n, 2.0 ** 105, np.float32),
+            np.full(n, 5 - 2.0 ** -21, np.float32))
+
+
+def _underflow_hpt_rows(L: int, n: int, rng):
+    from repro_torch.core.hpt import build_hpt
+
+    run = rng.integers(0, min(L - 3, 60), n)
+    tail = rng.integers(1, 4, n)
+    qb = np.where(np.arange(L)[None, :] < run[:, None], 0,
+                  rng.integers(1, 128, (n, L))).astype(np.uint8)
+    ql = np.minimum(run + tail, L).astype(np.int32)
+    qb = np.where(np.arange(L)[None, :] < ql[:, None], qb, 0).astype(np.uint8)
+    # built from zero-free rows: column 0 keeps only its smoothing, and a
+    # zero byte leaves the hash, hence the row, at 0
+    sample = rng.integers(1, 128, (4000, L)).astype(np.uint8)
+    hpt = build_hpt(StringSet(sample, rng.integers(1, L + 1, 4000).astype(np.int32)),
+                    rows=1024, cols=128)
+    return (qb, ql, hpt.cdf_tab, hpt.prob_tab, rng.uniform(1, 5e5, n).astype(np.float32),
+            rng.uniform(-4, 4, n).astype(np.float32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,11 +213,18 @@ def edge_cdf_rows(L: int, table: str, n: int = 65536):
     with any byte), ``clamped`` (1024 x 128, rows with any byte, so that
     the walk hashes and reads characters clamped to 127) or ``ties`` (the
     one-row table of :func:`tie_table`, every row a length-1 query of the
-    FMA-tie or saturation cases, with their alpha and beta).  Returns numpy
+    FMA-tie or saturation cases, with their alpha and beta); ``underflow``
+    and ``underflow_hpt`` hold rows whose ``prob`` underflows
+    (:func:`_underflow_rows`), each from ``start`` 0.  Returns numpy
     ``(qb, ql, st, cdf_tab, prob_tab, alpha, beta, nslots)``."""
     from repro_torch.core.hpt import build_hpt, uniform_hpt
 
     rng = np.random.default_rng(1000 * L + CDF_TABLES.index(table))
+    if table in ("underflow", "underflow_hpt"):
+        make = _underflow_rows if table == "underflow" else _underflow_hpt_rows
+        qb, ql, cdf_tab, prob_tab, alpha, beta = make(L, n, rng)
+        return (qb, ql, np.zeros(n, np.int32), cdf_tab, prob_tab, alpha, beta,
+                np.full(n, 1 << 30, np.int32))
     if table == "ties":
         cases = [np.concatenate(a) for a in zip(tie_cases(), saturation_cases())]
         cdf_tab, prob_tab, qb1, ql1 = tie_table(cases[0])

@@ -49,12 +49,31 @@ inline unsigned __byte_perm(unsigned a, unsigned b, unsigned s) {
 }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
-inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
-inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
-inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline int __float2int_rd(float x) { return static_cast<int>(std::floor(x)); }
 inline void __syncthreads() {}
 inline unsigned __ballot_sync(unsigned, bool) { std::abort(); }
 template <class T> T __shfl_sync(unsigned, T, int, int = 32) { std::abort(); }
 using std::max;
 using std::min;
+
+// lits_walk.cuh's PTX .ftz float ops: subnormal operands and results
+// become zeros of their sign; a product is tiny when, rounded to 24 bits
+// with an unbounded exponent, it is below 2**-126 (x86's and the card's
+// rule), checked on the product scaled by 2**64.
+namespace lits {
+inline float flush(float x) { return std::fabs(x) < 0x1p-126f ? x * 0.0f : x; }
+inline float mul_ftz(float a, float b) {
+  a = flush(a);
+  b = flush(b);
+  volatile float r = a * b;
+  volatile float scaled = (a * 0x1p64f) * b;
+  return std::fabs(scaled) < 0x1p-62f ? r * 0.0f : r;
+}
+inline float add_ftz(float a, float b) {
+  volatile float r = flush(a) + flush(b);
+  return flush(r);
+}
+inline float fma_ftz(float a, float b, float c) {
+  return flush(std::fmaf(flush(a), flush(b), flush(c)));
+}
+}  // namespace lits

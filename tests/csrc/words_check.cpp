@@ -79,8 +79,8 @@ float ref_cdf(const uint8_t* q, int L, int qlen, int start, const float* ct, con
   for (int k = 0; k < steps && start + k < qlen; ++k) {
     const int c = std::min(static_cast<int>(q[std::min(std::max(start + k, 0), L - 1)]), C - 1);
     const int idx = static_cast<int>(h & static_cast<uint32_t>(R - 1)) * C + c;
-    cdf = __fadd_rn(cdf, __fmul_rn(prob, ct[idx]));
-    prob = __fmul_rn(prob, pt[idx]);
+    cdf = lits::add_ftz(cdf, lits::mul_ftz(prob, ct[idx]));
+    prob = lits::mul_ftz(prob, pt[idx]);
     h = (h ^ static_cast<uint32_t>(c)) * kFnvPrime;
   }
   return cdf;

@@ -16,7 +16,8 @@ import torch
 from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, WORD_BATCHES, WORD_WINDOW,
                           edge_cdf_rows, nan_equal, nonfinite_tables, query_rows,
                           saturation_cases, short_orders, tie_cases, tie_table, trimmed,
-                          wide_edge_case, word_edge_case, word_edge_indexes, word_rows)
+                          underflow_keys, underflow_table, wide_edge_case, word_edge_case,
+                          word_edge_indexes, word_rows)
 from repro_torch.core.strings import StringSet
 from repro_torch.core.builder import LITSBuilder, LITSConfig
 from repro_torch.core.tensor_index import DATA_FIELDS, freeze, pad_queries
@@ -102,6 +103,41 @@ def test_cuda_group_cdf_and_locate_match_plain(cuda, B, L, max_steps, table):
     assert torch.equal(cdf, hpt_cdf.hpt_cdf_plain(qb, ql, st, ct, pt, max_steps))
     assert torch.equal(pos, hpt_locate.hpt_locate_plain(qb, ql, st, alpha, beta, ns, ct, pt,
                                                         max_steps))
+
+
+def test_cuda_ftz_ops_match_plain_rule(cuda, tmp_path):
+    """The kernels' float ops (PTX ``.ftz`` in ``csrc/lits_walk.cuh``) equal
+    the plain versions' flush rule bit for bit around 2**-126: subnormal
+    operands (a raw one times a large one, or added to 2**-126), products
+    and sums that round to 2**-126 or just below it, an underflowed operand
+    times inf, and signs of zero."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    src = Path(__file__).parent / "csrc" / "ftz_check.cu"
+    lib = tmp_path / "libftz_check.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+                    str(lib), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).lits_ftz_ops
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    t = 2.0 ** -126
+    rows = [(1 - 2 ** -23, t * (1 + 2 ** -23), 0.0), (1 - 2 ** -24, t, 0.0),
+            (1 - 2 ** -24, t, -0.0), (-(1 - 2 ** -24), t, 0.0),
+            (2 * t, -2 * t * (1 - 2 ** -23), 0.0), (1.0, 2 * t, -2 * t * (1 - 2 ** -23)),
+            (2.0 ** -130, 1.0, 0.5), (2.0 ** -133, np.inf, 0.0), (0.5, 2.0 ** -70, 2.0 ** -140),
+            (2.0 ** -70, 2.0 ** -70, -0.0), (1 + 2 ** -23, t * (1 - 2 ** -23), 0.0),
+            (3.0, 0.25, 1.0), (t, t, t), (2.0 ** -140, 2.0 ** 100, 0.0), (t / 2, t, 0.0)]
+    a, b, c = (torch.tensor(col, dtype=torch.float32) for col in zip(*rows))
+    da, db, dc = (x.to(cuda) for x in (a, b, c))
+    out = torch.empty(3 * a.shape[0], device=cuda)
+    err = fn(da.data_ptr(), db.data_ptr(), dc.data_ptr(), out.data_ptr(), a.shape[0],
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    got = out.cpu().view(-1, 3).T.contiguous()
+    want = [hpt_cdf.mul_ftz(a, b), hpt_cdf.add_ftz(a, b), hpt_locate.fma_f32(a, b, c)]
+    for name, g, w in zip(("mul", "add", "fma"), got, want):
+        assert nan_equal(g.numpy(), w.numpy()), (name, g, w)
 
 
 def test_cuda_wrappers_reject_bad_input(cuda):
@@ -202,11 +238,72 @@ def test_cuda_write_path_matches_cpu(cuda):
     assert g.delta_fill == c.delta_fill > 0
 
 
+def test_cuda_merge_matches_cpu(cuda):
+    """Two merge cycles on a card index (K1 places the replayed keys, K2 and
+    K1 build the rebuilt nodes) and on a CPU index built from the same keys
+    (the plain versions) leave every field, the builders' sorted orders and
+    height bounds, and the answers equal; each card merge launches K1."""
+    from repro_torch.index import IndexConfig, StringIndex
+
+    keys = synthetic.load("url", 8000, seed=21)
+    vals = np.arange(len(keys), dtype=np.int64) * 5
+    kw = dict(delta_capacity=2048, auto_merge_threshold=None)
+    g = StringIndex.bulk_load(keys, vals, IndexConfig(**kw))
+    c = StringIndex.bulk_load(keys, vals, IndexConfig(device="cpu", **kw))
+    rng = np.random.default_rng(22)
+    fresh = [k + b"/m%d" % i for i, k in enumerate(keys[::4])]
+    for cycle in range(2):
+        puts = fresh[cycle::2][:900] + keys[cycle::50]
+        dels = keys[1 + cycle::37] + fresh[cycle::11]
+        v = rng.integers(-(1 << 62), 1 << 62, len(puts))
+        for ix in (g, c):
+            ix.put_batch(puts, v)
+            ix.delete_batch(dels)
+        before = dict(_build.LAUNCHES)
+        g.merge()
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["hpt_locate"] > before["hpt_locate"]
+        c.merge()
+        assert g.epoch == c.epoch == cycle + 1
+        for f in DATA_FIELDS:
+            assert torch.equal(getattr(g.ti, f).cpu(), getattr(c.ti, f)), f
+        assert (g.ti.max_iters, g.ti.cdf_steps) == (c.ti.max_iters, c.ti.cdf_steps)
+        assert g._builder.height_bound() == c._builder.height_bound()
+        assert np.array_equal(g._builder.sorted_eids(), c._builder.sorted_eids())
+        probe = keys[::3] + fresh[::3]
+        for a, b in zip(g.get_batch(probe), c.get_batch(probe)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_cuda_underflow_index_matches_cpu(cuda):
+    """An index over keys whose GetCDF underflows (the one-row HPT of
+    ``underflow_table``): built on the card and on the CPU, its pools are
+    equal, and K4 walks them to the plain walk's answers."""
+    from repro_torch.core.hpt import HPT
+
+    ct, pt = underflow_table()
+    keys = underflow_keys(61, 3000)
+    ss = StringSet.from_list(keys)
+    bc = LITSBuilder(hpt=HPT(ct, pt), device="cpu")
+    bg = LITSBuilder(hpt=HPT(ct, pt), device="cuda")
+    bc.bulkload(ss)
+    bg.bulkload(ss)
+    tc, tg = freeze(bc), freeze(bg)
+    for f in DATA_FIELDS:
+        assert torch.equal(getattr(tc, f), getattr(tg, f).cpu()), f
+    queries = keys + [k + b"a" for k in keys[::5]] + [k[:-1] for k in keys[::7]]
+    qb, ql = _dev(cuda, *pad_queries(queries, tg.width))
+    got = traverse.fused_search_cuda(tg, qb, ql)
+    for a, b in zip(got, traverse.fused_search_plain(tg, qb, ql)):
+        assert torch.equal(a, b)
+
+
 def _live_index(dev):
     from repro_torch.index import IndexConfig, StringIndex
 
     keys = synthetic.load("url", 20000, seed=12)
-    ix = StringIndex.bulk_load(keys, None, IndexConfig(delta_capacity=2048, device=dev))
+    ix = StringIndex.bulk_load(keys, None, IndexConfig(delta_capacity=2048, device=dev,
+                                                       auto_merge_threshold=None))
     return keys, ix
 
 

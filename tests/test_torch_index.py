@@ -1,6 +1,7 @@
 """The port's main path against the JAX package, on the CPU: bulk load →
 freeze → batched point lookup.  Pools, (found, eid, is_delta, levels) and
 values must be equal bit for bit."""
+import copy
 import functools
 
 import jax.numpy as jnp
@@ -8,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (WORD_BATCHES_CPU, WORD_WIDTH, trimmed, word_edge_case,
-                          word_edge_indexes, word_rows)
+from _torch_cases import (WORD_BATCHES_CPU, WORD_WIDTH, trimmed, underflow_keys,
+                          underflow_table, word_edge_case, word_edge_indexes, word_rows)
 from repro.core import LITSBuilder as RBuilder, LITSConfig as RLITSConfig
 from repro.core import StringSet as RStringSet
 from repro.core import tensor_index as r_ti
@@ -222,12 +223,18 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         TBuilder()
 
 
+@functools.lru_cache(maxsize=None)
+def _lost_key_builders():
+    """An email set whose bulk load loses keys, built by both packages."""
+    keys = synthetic.DATASETS["email"](np.random.default_rng(4), 20000)
+    return (keys, *_build_both(keys))
+
+
 def test_lost_keys_reproduced():
     """The reference's bulk load loses stored keys when float32 rounding makes
     a model node's positions step back (builder.py run grouping).  This email
     set loses some; the port must lose exactly the same ones."""
-    keys = synthetic.DATASETS["email"](np.random.default_rng(4), 20000)
-    rb, tb = _build_both(keys)
+    keys, rb, tb = _lost_key_builders()
     r_reach = set(rb.iter_subtree(rb.root_item))
     t_reach = set(tb.iter_subtree(tb.root_item))
     assert r_reach == t_reach
@@ -240,6 +247,98 @@ def test_lost_keys_reproduced():
     np.testing.assert_array_equal(tf.numpy(), np.asarray(rf))
     np.testing.assert_array_equal(te.numpy(), np.asarray(re))
     assert (~tf.numpy()).sum() > 0
+
+
+def test_lost_keys_and_eid0_loss_carried_through_merge():
+    """The reference's own defects pass through merges unchanged: a base put
+    to entry 0 followed by another op in its batch is lost, and stays lost
+    through ``sync_base_values``; the keys the bulk load lost stay missing
+    to gets while the sorted order, which the merges splice, still holds
+    them.  Every field, the builders' caches and the answers equal the
+    reference's after each of two merges."""
+    keys, rb, tb = _lost_key_builders()
+    vals = np.arange(len(keys), dtype=np.int64)
+    cfg = dict(delta_capacity=512, auto_merge_threshold=None)
+    ri = RIndex.from_builder(copy.deepcopy(rb), RConfig(**cfg))
+    ti = TIndex.from_builder(copy.deepcopy(tb), TConfig(device="cpu", **cfg))
+    srt = sorted(keys)
+    lost = sorted(set(keys) - {tb.key_at(e) for e in tb.iter_subtree(tb.root_item)})
+    key0 = tb.key_at(0)
+    old0 = int(vals[keys.index(key0)])
+    assert lost and key0 not in lost
+    fresh = [b"new%03d@" % i + k for i, k in enumerate(srt[::400])]
+    probe = srt[::7] + lost + fresh + [b"zz-new@x.org"]
+
+    def both(puts, pvals, dels=()):
+        for ix in (ri, ti):
+            ix.put_batch(puts, pvals)
+            if dels:
+                ix.delete_batch(dels)
+
+    both([key0, b"zz-new@x.org"], np.array([777, 5]))
+    both(fresh, np.arange(len(fresh)) + 100, srt[1::611])
+    for cycle in range(2):
+        ri.merge()
+        ti.merge()
+        _assert_same_index(ri.ti, ti.ti)
+        assert ri._builder.height_bound() == ti._builder.height_bound()
+        np.testing.assert_array_equal(ri._builder.sorted_eids(), ti._builder.sorted_eids())
+        for a, b in zip(ri.get_batch(probe), ti.get_batch(probe)):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(ri.scan_batch(probe, 16), ti.scan_batch(probe, 16)):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        assert not ti.get_batch(lost)[0].any()
+        assert ti.get(key0) == old0                  # the put to entry 0 stayed lost
+        in_order = {ti._builder.key_at(int(e)) for e in ti._builder.sorted_eids()}
+        assert set(lost) <= in_order
+        both(fresh[cycle::3], np.arange(len(fresh[cycle::3])) + 7)
+
+
+def test_underflow_keys_index_equal_reference():
+    """An index over keys whose GetCDF underflows, with a one-row HPT in
+    which ``a`` has CDF 0 and probability 2**-7 (19 of them make ``prob``
+    subnormal, and the reference flushes it): the bulk load's pools, the
+    slot positions of every key at the root and the walk (levels included)
+    equal the reference's."""
+    from repro.core.hpt import HPT as RHPT, get_cdf_jnp, positions_jnp
+    from repro_torch.core.hpt import HPT as THPT
+
+    ct, pt = underflow_table()
+    keys = underflow_keys(61, 1500)
+    rb, tb = RBuilder(hpt=RHPT(ct, pt)), TBuilder(hpt=THPT(ct, pt), device="cpu")
+    vals = np.arange(len(keys), dtype=np.int64)
+    rb.bulkload(RStringSet.from_list(keys), vals)
+    tb.bulkload(TStringSet.from_list(keys), vals)
+    rti, tti = r_ti.freeze(rb), t_ti.freeze(tb)
+    _assert_same_index(rti, tti)
+    assert rb.height_bound() == tb.height_bound()
+    qb, ql = r_ti.pad_queries(keys, rti.width)
+    J = [jnp.asarray(x) for x in (ct, pt, qb, ql)]
+    cdf = np.asarray(get_cdf_jnp(*J, jnp.int32(0)))
+    assert cdf[keys.index(b"a" * 19 + b"b")] == 0 and (cdf > 0).any()   # underflowed
+    alpha, beta = float(tb.mn_alpha.data[0]), float(tb.mn_beta.data[0])
+    m = int(tb.mn_slot_cnt.data[0])
+    want = np.asarray(positions_jnp(*J, jnp.int32(0), jnp.float32(alpha), jnp.float32(beta),
+                                    jnp.int32(m)))
+    got = t_hpt_positions(ct, pt, qb, ql, alpha, beta, m)
+    np.testing.assert_array_equal(got, want)
+    queries = keys + [k + b"a" for k in keys[::5]] + [k[:-1] for k in keys[::7]]
+    qb, ql = r_ti.pad_queries(queries, rti.width)
+    T = (torch.from_numpy(qb), torch.from_numpy(ql))
+    got = [x.numpy() for x in t_ti.search_batch(tti, *T)]
+    want = r_ti.search_batch(rti, jnp.asarray(qb), jnp.asarray(ql), backend="jnp")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    _, _, levels = traverse.fused_search(tti, *T)
+    _, _, r_levels = r_ops.fused_search(rti, jnp.asarray(qb), jnp.asarray(ql), interpret=True)
+    np.testing.assert_array_equal(levels.numpy(), np.asarray(r_levels))
+
+
+def t_hpt_positions(ct, pt, qb, ql, alpha, beta, m):
+    from repro_torch.core.hpt import positions
+
+    return positions(*(torch.from_numpy(x) for x in (ct, pt, qb, ql)), 0, alpha, beta,
+                     m).numpy()
 
 
 def test_value_split_and_join_equal():

@@ -10,6 +10,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from repro.kernels.hpt_cdf import hpt_cdf_pallas
 from repro.kernels.hpt_locate import hpt_locate_pallas
 from repro_torch.core import hpt as t_hpt
 from repro_torch.kernels import ops
+from repro_torch.kernels.hpt_cdf import add_ftz, mul_ftz
 from repro_torch.kernels.hpt_locate import fma_f32
 
 
@@ -89,6 +91,42 @@ def test_fma_emulation_exact_on_ties_and_random():
     b = rng.uniform(-1e3, 1e3, 3000).astype(np.float32)
     got = fma_f32(torch.from_numpy(a), torch.from_numpy(c), torch.from_numpy(b)).numpy()
     np.testing.assert_array_equal(got, exact_fma_f32(a, c, b))
+
+
+def test_fma_flushes_subnormals_as_xla():
+    """``fma_f32`` flushes as XLA on the CPU does, bit for bit (sign of zero
+    included): subnormal operands count as zeros, and a result is flushed
+    when its 24-bit rounding with an unbounded exponent is below 2**-126,
+    so an exact 2**-126 (1 - 2**-46) is kept and 2**-126 - 2**-150 is not;
+    the same product from a subnormal operand is 0."""
+    t = 2.0 ** -126
+    rows = [(1 - 2 ** -23, t * (1 + 2 ** -23), 0.0), (1 - 2 ** -24, t, 0.0),
+            (1 - 2 ** -24, t, -0.0), (-(1 - 2 ** -24), t, 0.0),
+            (1.0, 2 * t, -2 * t * (1 - 2 ** -23)), (2.0 ** -130, 1.0, 0.5),
+            (2.0 ** -133, np.inf, 0.0), (0.5, 2.0 ** -70, 2.0 ** -140),
+            (2.0 ** -70, 2.0 ** -70, -0.0), (3.0, 0.25, 1.0), (1 + 2 ** -23, t * (1 - 2 ** -23), 0.0)]
+    a, b, c = (np.array(col, np.float32) for col in zip(*rows))
+    want = np.asarray(jax.jit(lambda x, y, z: x * y + z)(a, b, c))
+    got = fma_f32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert got[0] == t and got[1] == 0 and np.isnan(got[6]) and got[10] == 0
+
+
+def test_mul_add_flush_subnormals_as_xla():
+    """``mul_ftz`` and ``add_ftz`` equal XLA's float32 ``*`` and ``+`` on the
+    CPU bit for bit: a raw subnormal operand counts as a zero of its sign
+    (2**-140 * 2**100 is 0, 2**-127 + 2**-126 is 2**-126), and a product that
+    rounds up to 2**-126 is kept while one that rounds below it is not."""
+    t = 2.0 ** -126
+    rows = [(2.0 ** -140, 2.0 ** 100), (t / 2, t), (-t / 2, 2.0 ** 30), (1 - 2 ** -24, t),
+            (-(1 - 2 ** -24), t), (1 - 2 ** -23, t * (1 + 2 ** -23)), (2 * t, -2 * t * (1 - 2 ** -23)),
+            (2.0 ** -133, np.inf), (2.0 ** -70, 2.0 ** -70), (-(2.0 ** -70), 2.0 ** -70), (3.0, 0.25)]
+    a, b = (np.array(col, np.float32) for col in zip(*rows))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for want_fn, got in ((lambda x, y: x * y, mul_ftz(ta, tb)), (lambda x, y: x + y, add_ftz(ta, tb))):
+        want = np.asarray(jax.jit(want_fn)(a, b))
+        np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert mul_ftz(ta, tb)[0] == 0 and add_ftz(ta, tb)[1] == t
 
 
 def test_positions_fma_ties_equal_reference():

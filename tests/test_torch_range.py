@@ -10,12 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (WORD_BATCHES_CPU, WORD_WIDTH, WORD_WINDOW, nan_equal, query_rows,
-                          scan_entries, short_orders, trimmed, visited_entries, word_edge_case,
-                          word_edge_indexes, word_rows)
+from _torch_cases import (WORD_BATCHES_CPU, WORD_WIDTH, WORD_WINDOW, edge_cdf_rows, nan_equal,
+                          nonfinite_tables, query_rows, scan_entries, short_orders, trimmed,
+                          visited_entries, word_edge_case, word_edge_indexes, word_rows)
 from repro.core import LITSBuilder as RBuilder, LITSConfig as RLITSConfig
 from repro.core import StringSet as RStringSet
 from repro.core import tensor_index as r_ti
+from repro.core.hpt import get_cdf_jnp
 from repro.core.strings import random_strings
 from repro.index import IndexConfig as RConfig, StringIndex as RIndex
 from repro.kernels import ops as r_ops
@@ -287,7 +288,8 @@ def test_onehot_cdf_equals_reference_kernel_and_k2(max_steps):
 def _onehot_rule_cdf(qb, ql, st, cdf_tab, prob_tab, max_steps):
     """A torch mirror of K7's rule (``csrc/hpt_cdf_onehot.cu``): K2's walk,
     each value read turned into NaN where its column's count of non-finite
-    entries (:func:`hpt_cdf.nonfinite_columns`), less its own, is positive."""
+    entries (:func:`hpt_cdf.nonfinite_columns`), less its own, is positive;
+    subnormals flushed as K2 flushes them."""
     R, C = cdf_tab.shape
     B, L = qb.shape
     cdf, prob = torch.zeros(B), torch.ones(B)
@@ -299,10 +301,10 @@ def _onehot_rule_cdf(qb, ql, st, cdf_tab, prob_tab, max_steps):
         active = pos < ql.long()
         vals = []
         for tab, cnt in zip((cdf_tab, prob_tab), bad):
-            v = tab[h & (R - 1), c]
+            v = hpt_cdf.flush_subnormal(tab[h & (R - 1), c])
             vals.append(torch.where(cnt[c] - (~torch.isfinite(v)).int() > 0, float("nan"), v))
-        cdf = cdf + torch.where(active, prob * vals[0], 0.0)
-        prob = prob * torch.where(active, vals[1], 1.0)
+        cdf = hpt_cdf.add_ftz(cdf, torch.where(active, hpt_cdf.mul_ftz(prob, vals[0]), 0.0))
+        prob = hpt_cdf.mul_ftz(prob, torch.where(active, vals[1], 1.0))
         h = torch.where(active, ((h ^ c) * strops.FNV_PRIME) & strops.U32, h)
     return cdf
 
@@ -356,6 +358,32 @@ def test_onehot_cdf_nonfinite_tables_equal_reference(case, max_steps):
         np.testing.assert_array_equal(got.numpy(), hpt_cdf.hpt_cdf_plain(*args, max_steps).numpy())
     else:
         assert 0 < n_bad < want.shape[0]
+
+
+@pytest.mark.parametrize("case", ["underflow", "underflow_hpt", "uniform1 non-finite"])
+def test_cdf_underflow_rows_equal_reference(case):
+    """Rows whose ``prob`` underflows, where the reference (XLA on the CPU)
+    flushes subnormals: K2's plain version equals the reference's GetCDF
+    and K7's its one-hot kernel (interpret mode), NaN equal to NaN.  On the
+    one-row uniform table with the non-finite entries that
+    ``nonfinite_tables`` places for all 65,536 edge rows (the card's K7
+    case), rows such as 359 read an inf after more than 18 steps of 2**-7:
+    0 times inf, NaN, where a kept subnormal gave inf."""
+    table = case.split()[0]
+    qb, ql, st, ct, pt = edge_cdf_rows(94, table)[:5]
+    if case.endswith("non-finite"):
+        ct, pt = nonfinite_tables(qb, ql, st, ct, pt, 64)
+    n = {"underflow": 40, "underflow_hpt": 257, "uniform1": 4097}[table]
+    J = [jnp.asarray(x) for x in (qb[:n], ql[:n], st[:n], ct, pt)]
+    want = np.asarray(get_cdf_jnp(J[3], J[4], J[0], J[1], J[2]))
+    want_onehot = np.asarray(hpt_cdf_pallas(*J, variant="onehot", interpret=True))
+    T = [torch.from_numpy(x) for x in (qb[:n], ql[:n], st[:n], ct, pt)]
+    assert nan_equal(hpt_cdf.hpt_cdf_plain(*T).numpy(), want)
+    assert nan_equal(hpt_cdf.hpt_cdf_onehot_plain(*T).numpy(), want_onehot)
+    if table == "uniform1":
+        assert np.isnan(want[359]) and np.isnan(want_onehot[359])
+    else:
+        assert (want == 0).any() and (want > 0).any()
 
 
 # -- the word-path edge cases of K6 (tests/_torch_cases.py) ----------------

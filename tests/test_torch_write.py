@@ -231,14 +231,14 @@ def test_mutate_batch_never_syncs(monkeypatch):
 
 
 def test_facade_writes_match_reference():
-    """put_batch/delete_batch through both facades (the reference with no
-    auto-merge): masks, gets, and the host mirrors."""
+    """put_batch/delete_batch through both facades, with no auto-merge, up
+    to a full delta: masks, gets, and the host mirrors."""
     rng = np.random.default_rng(21)
     keys = sorted(set(random_strings(rng, 400, 3, 16)))
     vals = rng.integers(-(1 << 62), 1 << 62, len(keys), dtype=np.int64)
     kw = dict(width=24, delta_capacity=128)
     ri = RIndex.bulk_load(keys, vals, RConfig(auto_merge_threshold=None, **kw))
-    ti = TIndex.bulk_load(keys, vals, TConfig(device="cpu", **kw))
+    ti = TIndex.bulk_load(keys, vals, TConfig(device="cpu", auto_merge_threshold=None, **kw))
     assert ti.delta_fill == 0.0 and not ti.delta_overflowed and ti.epoch == 0
     fresh = [b"new-%04d" % i for i in range(150)]
     ops = [("put", keys[:30] + fresh[:40]), ("delete", keys[20:50] + fresh[30:45]),
