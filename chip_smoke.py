@@ -21,9 +21,22 @@ size on one 1,000,000-key synthetic URL index:
   the sorted order and the lost keys equal, then lookups of every touched
   key and a range pass against the oracle; each merge's time on the card's
   clock, with its parts;
+* ``execute``: one mixed batch of 65,536 typed requests (puts of
+  never-stored keys, value updates, deletes, gets, scans at windows 16 and
+  64) on the card's index and on its CPU copy, every result equal;
+* the request plane: ``IndexService.bulk_load`` of two tenants (the 1M url
+  keys and 250,000 email keys) on the card, eight client threads over
+  disjoint key partitions submitting YCSB A, inserts and YCSB E in
+  ``submit_batch`` groups of 256, every result against each client's
+  oracle, background merges, then every key and a ``scan_page`` pass of
+  both tenants against the oracle;
+* snapshots: the service's index with a live delta saved, loaded on the
+  card and on the CPU, and its gets and scans compared;
 * ``ops.hpt_cdf(variant="onehot")``, the one-hot GetCDF, on the index's HPT
   and again on a copy with inf, -inf and NaN entries in columns the
-  queries read and in columns they do not.
+  queries read and in columns they do not;
+* K4, K5 and K6 on rows of 262,144 bytes, too wide for a block's shared
+  memory, which they stage in device memory.
 
 Every GetCDF (K2) and locate (K1) call of a second bulk load of the same
 keys (so that the recorder stays out of the timed one) is recorded and
@@ -43,7 +56,8 @@ It exits non-zero on any failure, and when there is no CUDA device.
 before/after run): the phases that package cannot pass are skipped, each
 with a line that says so: the compaction phase, the check that the
 GetCDF/locate kernels' float ops all flush subnormals, the K7 phase with
-non-finite tables and the kernel-versus-plain checks on the underflow rows.
+non-finite tables, the kernel-versus-plain checks on the underflow rows,
+and the execute, service, snapshot and wide-row phases.
 Without it every phase runs.
 
 Output: one line per phase, then a JSON line of per-kernel numbers, then
@@ -76,6 +90,20 @@ WRITE_BATCH = 1_024         # ops per put_batch / delete_batch
 N_SUBSET = 100_000          # keys of the cuda-vs-cpu structure check
 SEED = 0
 DEVICE = "cuda"
+WIDE_W = 262_144            # phase wide: a row past a block's shared memory
+WIDE_ROWS = 64              # phase wide: query rows
+EXEC_OPS = 65_536           # phase execute: ops of the one mixed batch
+EXEC_SCANS = 1_024          # ... of which scans, half at window 16, half at 64
+N_EMAIL = 250_000           # phase service: stored email keys
+N_CLIENTS = 8               # phase service: client threads
+SVC_LOST_SAMPLE = 512       # phase service: lost keys of a tenant walked on the host
+SVC_GROUP = 256             # ops per submit_batch group
+SVC_A_OPS = 5_000           # per client: YCSB A (zipf) ops
+SVC_INSERTS = 1_000         # per client: inserts of never-stored keys
+SVC_E_OPS = 1_000           # per client: YCSB E (zipf, scan_len 16) ops
+SVC_MERGE_THRESHOLD = 0.6   # the service's background merge trigger
+SNAP_GETS = 65_536          # phase snapshot: gets and scans on each copy
+SNAP_SCANS = 16_384
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
@@ -283,12 +311,26 @@ def replay_bound_ms(name, args):
                for a, n_steps in zip(args, act))
 
 
-def replay_bulk_load(rec, kernels, plains, dev, n_sample: int = 48):
+def plain_over_calls(plain, arglist, chunk: int = 1 << 18) -> torch.Tensor:
+    """``plain`` over the rows of every call in ``arglist`` (the ``*_cuda``
+    signature) at once, in chunks of rows: the calls of one build share
+    the tables and the step count (the last three arguments), and a row's
+    result depends on its own arguments only.  The outputs in call order."""
+    tail = arglist[0][-3:]
+    if any(a[-3] is not tail[0] or a[-2] is not tail[1] or a[-1] != tail[2] for a in arglist):
+        fail("the recorded calls do not share their tables and step count")
+    cols = [torch.cat([a[i] for a in arglist]) for i in range(len(arglist[0]) - 3)]
+    return torch.cat([plain(*(c[i: i + chunk] for c in cols), *tail)
+                      for i in range(0, cols[0].shape[0], chunk)])
+
+
+def replay_bulk_load(rec, kernels, plains, dev):
     """Launch every recorded K2/K1 call again through ``kernels[name]`` (the
     ``*_cuda`` signature), in one CUDA graph per kernel, timed by CUDA events
     around the whole replay.  Each replayed output must equal what the build
-    got from that call and, on a sample of calls (the largest among them),
-    the plain version.  Returns per kernel its numbers."""
+    got from that call, and every call's output the plain version's on the
+    same arguments (:func:`plain_over_calls`).  Returns per kernel its
+    numbers."""
     args = replay_args(rec.calls, dev)
     out = {}
     for name, arglist in args.items():
@@ -299,14 +341,13 @@ def replay_bulk_load(rec, kernels, plains, dev, n_sample: int = 48):
         floor_ms, _ = graph_ms([lambda: tick.add_(1.0)] * n)
         got = torch.cat(outs)
         used = torch.cat([o for _, o in rec.calls[name]])
-        sample = sorted(set(range(0, n, max(1, n // n_sample))) | {int(rows.argmax())})
-        plain_ok = all(torch.equal(plains[name](*arglist[i]), outs[i]) for i in sample)
         out[name] = {"launches": n, "rows": int(rows.sum()), "median_rows": float(np.median(rows)),
                      "p90_rows": float(np.percentile(rows, 90)), "max_rows": int(rows.max()),
                      "ms": ms, "ms_per_launch": ms / n, "floor_ms": floor_ms,
                      "bound_ms": replay_bound_ms(name, arglist),
                      "equal_to_build": bool(torch.equal(got, used)),
-                     "equal_to_plain": plain_ok, "plain_sample": len(sample)}
+                     "equal_to_plain": bool(torch.equal(plain_over_calls(plains[name], arglist),
+                                                        used))}
     return out
 
 
@@ -531,14 +572,66 @@ class MergeClock:
 
 def cpu_builder(builder):
     """A copy of ``builder`` that computes on the CPU: the same pools, HPT,
-    caches and random state, so that it merges in lockstep with the card's."""
-    tables, builder._tables = builder._tables, None
-    try:
-        out = copy.deepcopy(builder)
-    finally:
-        builder._tables = tables
+    caches and random state, so that it merges in lockstep with the card's.
+    The card's builder is only read (its device tables are left out of the
+    copy through the memo), so a thread of a service may copy it."""
+    out = copy.deepcopy(builder, {id(builder._tables): None})
     out.device = torch.device("cpu")
     return out
+
+
+def cpu_copy(ti):
+    """``ti`` with every data field on the CPU."""
+    from repro_torch.core.tensor_index import DATA_FIELDS
+
+    return dataclasses.replace(ti, **{f: getattr(ti, f).cpu() for f in DATA_FIELDS})
+
+
+class FirstMerge:
+    """The first merge a service runs on ``index``, kept to replay on the
+    CPU: as ``run_merge`` starts (in the maintenance thread, off the index
+    lock, while flushes go on) a CPU copy of the builder and of the
+    ticket's index; as it ends, the card's merged index, height bound and
+    sorted order.  Later merges pass through."""
+
+    def __init__(self, index):
+        self.index, self.kept = index, None
+        self._run = index.run_merge
+        index.run_merge = self.run  # the service calls index.run_merge
+
+    def close(self):
+        del self.index.run_merge
+
+    def run(self, ticket):
+        if self.kept is not None:
+            return self._run(ticket)
+        t = time.perf_counter()
+        kept = {"builder": cpu_builder(self.index._builder), "ti": cpu_copy(ticket.ti),
+                "fresh": ticket.builder_fresh}
+        kept["copy_s"] = time.perf_counter() - t
+        new_ti = self._run(ticket)
+        b = self.index._builder
+        kept.update(card=cpu_copy(new_ti), height_bound=copy.deepcopy(b.height_bound()),
+                    sorted=b.sorted_eids().copy())
+        self.kept = kept
+        return new_ti
+
+    def replay(self):
+        """The merge again on the CPU copy: ``(fields, static fields and
+        builder caches that differ from the card's, delta entries, seconds)``."""
+        from repro_torch.core.tensor_index import DATA_FIELDS, STATIC_FIELDS, merge_delta
+
+        k = self.kept
+        t = time.perf_counter()
+        got = merge_delta(k["builder"], k["ti"], sync_base_values=not k["fresh"])
+        s_ = time.perf_counter() - t
+        diff = [f for f in DATA_FIELDS if not torch.equal(getattr(got, f), getattr(k["card"], f))]
+        diff += [f for f in STATIC_FIELDS if getattr(got, f) != getattr(k["card"], f)]
+        if k["builder"].height_bound() != k["height_bound"]:
+            diff.append("height_bound()")
+        if not np.array_equal(k["builder"].sorted_eids(), k["sorted"]):
+            diff.append("sorted_eids()")
+        return diff, int(k["ti"].de_count), s_
 
 
 def merge_rounds(rng, absent, used, found_keys, W):
@@ -744,6 +837,465 @@ def merge_phase(index, cpu_index, rounds, live, absent, found_keys, stored, miss
     return merge_launches
 
 
+def wide_phase(dev):
+    """Phase wide: K4, K5 and K6 against their plain versions on a small index
+    whose rows (``WIDE_W`` bytes) pass the shared memory a block can have, so
+    that the kernels read them in place from the wrapper's padded matrix in
+    device memory; with an empty and a live delta.  Returns each kernel's
+    time on those rows, its plain version's and its bound."""
+    from _torch_cases import WORD_WINDOW, wide_edge_case, word_edge_indexes, word_rows
+    from repro_torch.core.builder import LITSConfig
+    from repro_torch.core.tensor_index import pad_queries
+    from repro_torch.index import IndexConfig, StringIndex
+    from repro_torch.kernels import _build, rank, scan, traverse
+
+    t = time.time()
+    empty, live = word_edge_indexes(StringIndex, IndexConfig, LITSConfig, WIDE_W,
+                                    wide_edge_case, device=DEVICE)
+    sync()
+    build_s = time.time() - t
+    _, _, queries, _ = wide_edge_case(WIDE_W)
+    qb, ql = (torch.from_numpy(a).to(dev)
+              for a in pad_queries(word_rows(queries, WIDE_ROWS), WIDE_W))
+    padded, (_, rows) = _build.wide_rows(qb, 1)
+    if padded is None:
+        fail(f"width {WIDE_W} stages in shared memory: the device-memory path is not taken")
+    calls = {
+        "fused_search": (lambda ti: traverse.fused_search_cuda(ti, qb, ql),
+                         lambda ti: traverse.fused_search_plain(ti, qb, ql), 12),
+        "rank": (lambda ti: (rank.fused_rank_cuda(ti, qb, ql),),
+                 lambda ti: (rank.fused_rank_plain(ti, qb, ql),), 4),
+        "scan": (lambda ti: scan.fused_scan_cuda(ti, qb, ql, window=WORD_WINDOW),
+                 lambda ti: scan.fused_scan_plain(ti, qb, ql, window=WORD_WINDOW),
+                 6 * WORD_WINDOW),
+    }
+    out = {}
+    for name, (kern, plain, out_bytes) in calls.items():
+        same = all(torch.equal(a, b) for ti in (empty, live)
+                   for a, b in zip(kern(ti), plain(ti)))
+        sync()
+        if not same:
+            fail(f"{name} differs from its plain version on rows of {WIDE_W} bytes")
+        # the least bytes: the query rows and lengths in, the outputs out
+        b_ms, b_by = bound_ms(WIDE_ROWS * (WIDE_W + 4 + out_bytes))
+        out[name] = {"W": WIDE_W, "rows": WIDE_ROWS, "ms": kernel_ms(lambda: kern(live), 10),
+                     "plain_ms": time_cuda(lambda: plain(live), reps=1, warmup=0),
+                     "bound_ms": b_ms, "bound_by": b_by}
+    say(f"phase wide: {WIDE_ROWS} rows of {WIDE_W} bytes (a staged row of "
+        f"{4 * (((WIDE_W + 3) // 4) | 1)} bytes; a block's shared memory "
+        f"{torch.cuda.get_device_properties(dev).shared_memory_per_block_optin}), read in "
+        f"place from the padded matrix, {rows} row(s) a block; K4, K5 and K6 == plain with an "
+        f"empty and a live delta: True; " + ", ".join(
+            f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.5f} ms "
+            f"by {v['bound_by']})" for k, v in out.items())
+        + f"; index built in {build_s:.1f} s, phase {time.time() - t:.1f} s")
+    return out
+
+
+def execute_phase(index, cpu_index, keys, absent, rng):
+    """Phase execute: one mixed ``execute`` batch of EXEC_OPS ops on the card's
+    index and on its CPU copy (the same builder lineage): a quarter puts of
+    keys the phase data never stored, a quarter value updates, a sixteenth
+    deletes, EXEC_SCANS scans at windows 16 and 64, the rest gets.  Every
+    OpResult, the batch's effects and then every field must be equal.
+    Returns the phase's kernel launches."""
+    from repro_torch.index import DeleteRequest, GetRequest, PutRequest, ScanRequest
+    from repro_torch.kernels import _build
+
+    q, nd = EXEC_OPS // 4, EXEC_OPS // 16
+    new = [absent[i] for i in rng.choice(len(absent), q, replace=False)]
+    pick = rng.choice(len(keys), q + nd, replace=False)
+    upd, dels = [keys[i] for i in pick[:q]], [keys[i] for i in pick[q:]]
+    vals = rng.integers(-(1 << 62), 1 << 62, 2 * q).tolist()
+    n_get = EXEC_OPS - 2 * q - nd - EXEC_SCANS
+    written = new + upd + dels
+    gets = ([keys[i] for i in rng.integers(0, len(keys), n_get // 2)]
+            + [absent[i] for i in rng.integers(0, len(absent), n_get // 4)])
+    gets += [written[i] for i in rng.integers(0, len(written), n_get - len(gets))]
+    starts = [keys[i][: int(n)] for i, n in zip(rng.integers(0, len(keys), EXEC_SCANS),
+                                                rng.integers(1, 40, EXEC_SCANS))]
+    batch = ([PutRequest(k, v) for k, v in zip(new + upd, vals)]
+             + [DeleteRequest(k) for k in dels] + [GetRequest(k) for k in gets]
+             + [ScanRequest(k, 16 if j % 2 else 64) for j, k in enumerate(starts)])
+    batch = [batch[i] for i in rng.permutation(len(batch))]
+    _build.reset_launches()
+    sync()
+    t = time.perf_counter()
+    card = index.execute(batch)
+    sync()
+    card_ms = (time.perf_counter() - t) * 1e3
+    launches = dict(_build.LAUNCHES)
+    t = time.perf_counter()
+    cpu = cpu_index.execute(batch)
+    cpu_s = time.perf_counter() - t
+    differ = sum(a != b for a, b in zip(card.results, cpu.results))
+    effects = [(r.n_get, r.n_put, r.n_scan, r.n_delete, r.merged, r.delta_fill)
+               for r in (card, cpu)]
+    diff = same_state(index, cpu_index)
+    hist = collections.Counter(f"{type(r).__name__[:-7].lower()} {res.status.name}"
+                               for r, res in zip(batch, card.results))
+    say(f"phase execute: one batch of {len(batch)} ops ({q} puts of never-stored keys, {q} "
+        f"updates, {nd} deletes, {n_get} gets, {EXEC_SCANS} scans at windows 16 and 64) on "
+        f"the 1M-key url index: {card_ms:.1f} ms on the card, {cpu_s:.1f} s on the CPU copy; "
+        f"OpResults differing {differ}; effects (n_get, n_put, n_scan, n_delete, merged, "
+        f"delta_fill) card {effects[0]} cpu {effects[1]}; fields differing after it "
+        f"{diff or 'none'}; statuses {dict(sorted(hist.items()))}; launches {launches}")
+    if differ or len(card.results) != len(cpu.results) or effects[0] != effects[1] or diff:
+        fail("execute answers differently on the card and on the CPU")
+    for name in ("fused_search", "scan"):
+        if launches[name] == 0:
+            fail(f"the execute path never launched {name}")
+    return launches, card_ms
+
+
+def _service_workload(c, parts, fresh_parts, seed):
+    """Client ``c``'s groups of SVC_GROUP requests, ``[(tenant, requests)]``:
+    YCSB A (zipf) ops, then inserts of never-stored keys, then YCSB E (zipf,
+    scan_len 16) ops, each tenant's share of each in proportion to its keys,
+    the tenants' groups taken in turn."""
+    from repro_torch.data import ycsb
+    from repro_torch.index import GetRequest, PutRequest, ScanRequest
+
+    total = sum(len(p) for p in parts.values())
+    rng = np.random.default_rng(seed)
+    stages = []
+    for stage in ("A", "insert", "E"):
+        per_tenant = []
+        for t, part in parts.items():
+            share = len(part) / total
+            fresh = fresh_parts[t]
+            n_ins = int(SVC_INSERTS * share)
+            if stage == "A":
+                ops = ycsb.generate("A", part, [], int(SVC_A_OPS * share), dist="zipf",
+                                    seed=seed * 7 + len(t))
+            elif stage == "insert":
+                ops = [ycsb.Op("insert", k, int(v)) for k, v in zip(
+                    fresh[:n_ins], rng.integers(0, 1 << 62, n_ins))]
+            else:
+                ops = ycsb.generate("E", part, fresh[n_ins:], int(SVC_E_OPS * share),
+                                    dist="zipf", seed=seed * 11 + len(t), scan_len=16)
+            reqs = [GetRequest(o.key) if o.kind == "read" else
+                    ScanRequest(o.key, o.scan_len) if o.kind == "scan" else
+                    PutRequest(o.key, o.value) for o in ops]
+            per_tenant.append([(t, reqs[i: i + SVC_GROUP])
+                               for i in range(0, len(reqs), SVC_GROUP)])
+        for i in range(max(len(g) for g in per_tenant)):
+            stages += [g[i] for g in per_tenant if i < len(g)]
+    return stages
+
+
+class ServiceOracle:
+    """One client's model of ``execute``'s planning over its own keys, group
+    by group: puts in order (a put of a live key updates, of an absent one
+    inserts; an insert may find the delta full), then gets.  Scans cross
+    every client's keys, so a scan is held to what any client could have
+    made: strictly ascending keys from the start on, inside the tenant, and
+    each value one its key held (bulk loaded or put)."""
+
+    def __init__(self, state, bulk, put_values):
+        self.state, self.bulk, self.put_values = state, bulk, put_values
+        self.bad, self.refused, self.scans, self.scan_entries = [], 0, 0, 0
+
+    def check(self, tenant, reqs, results):
+        from repro_torch.index import GetRequest, PutRequest, Status
+
+        st = self.state[tenant]
+        for r, res in zip(reqs, results):
+            if isinstance(r, PutRequest):
+                cur = st.get(r.key)
+                if res.status == Status.OK and res.updated == (cur is not None):
+                    st[r.key] = r.value
+                elif res.status == Status.REJECTED_FULL and cur is None:
+                    self.refused += 1
+                else:
+                    self.bad.append(("put", tenant, r.key, res, cur))
+        for r, res in zip(reqs, results):
+            if isinstance(r, GetRequest):
+                cur = st.get(r.key)
+                if (res.status, res.value) != ((Status.OK, cur) if cur is not None
+                                               else (Status.NOT_FOUND, None)):
+                    self.bad.append(("get", tenant, r.key, res, cur))
+            elif not isinstance(r, PutRequest):
+                self.scans += 1
+                self.scan_entries += len(res.entries or ())
+                prev = None
+                for k, v in res.entries or ():
+                    if ((prev is not None and k <= prev) or k < r.start or b"\x1f" in k
+                            or (v != self.bulk[tenant].get(k)
+                                and v not in self.put_values.get((tenant, k), ()))):
+                        self.bad.append(("scan", tenant, r.start, k, v))
+                        break
+                    prev = k
+
+
+def service_phase(keys, absent, values, smi):
+    """Phase service: ``IndexService.bulk_load`` of two tenants on the card
+    (url: the phase data's stored keys; email: N_EMAIL keys), N_CLIENTS client
+    threads over disjoint key partitions of both, each submitting its
+    workload (:func:`_service_workload`) in ``submit_batch`` groups and
+    waiting on each, every result held to the client's oracle; then every
+    key of both tenants through the service and a ``scan_page`` pass over
+    each tenant against the oracle.  A stored key may miss only if the bulk
+    load lost it: one pass right after the load finds those, none of a
+    sample of them may be reachable by the builder's host walk, and every
+    K2/K1 call of the load, recorded, must equal its plain version
+    (:func:`replay_bulk_load`), so the card built what the CPU builds.  The
+    first background merge is replayed on a CPU copy (:class:`FirstMerge`)
+    and must leave the same index; a key a merge loses fails the run.
+    Returns the service's index (closed service), the tenants' keys, the
+    phase's kernel launches and its numbers."""
+    import threading
+
+    from repro_torch.core.builder import LITSBuilder
+    from repro_torch.data import synthetic
+    from repro_torch.index import GetRequest, IndexConfig, Status
+    from repro_torch.kernels import _build, hpt_cdf, hpt_locate
+    from repro_torch.serve import IndexService, ServiceConfig
+
+    rng = np.random.default_rng(SEED + 3)
+    t = time.time()
+    emails = synthetic.load("email", 2 * N_EMAIL, seed=SEED)
+    perm = rng.permutation(len(emails))
+    tenants = {"url": (keys, values),
+               "email": ([emails[i] for i in perm[:N_EMAIL]],
+                         rng.integers(-(1 << 62), 1 << 62, N_EMAIL))}
+    fresh = {"url": absent, "email": [emails[i] for i in perm[N_EMAIL:]]}
+    del emails
+    data_s = time.time() - t
+    _build.reset_launches()
+    load_calls = ModelCalls()
+    sync()
+    t = time.time()
+    # the queue bound admits one BATCH of the final pass's gets at once
+    with load_calls.on(LITSBuilder):
+        svc = IndexService.bulk_load(tenants, IndexConfig(device=DEVICE), ServiceConfig(
+            max_batch=SVC_GROUP, merge_threshold=SVC_MERGE_THRESHOLD, max_queue=2 * BATCH))
+    first = FirstMerge(svc.index)
+    try:
+        sync()
+        load_s = time.time() - t
+        load_launches = dict(_build.LAUNCHES)
+        index = svc.index
+        bulk = {tn: dict(zip(k, v.tolist())) for tn, (k, v) in tenants.items()}
+        lost, wrong = {}, 0
+        for tn, (tkeys, _) in tenants.items():
+            lost[tn] = set()
+            enc = [IndexService.encode_key(tn, k) for k in tkeys]
+            for b in range(0, len(enc), BATCH):
+                found, got = index.get_batch(enc[b: b + BATCH])
+                for k, f, v in zip(tkeys[b: b + BATCH], found.tolist(), got.tolist()):
+                    if not f:
+                        lost[tn].add(k)
+                    elif v != bulk[tn][k]:
+                        wrong += 1
+        # a key the walk misses must be one the builder's host walk misses too
+        t1 = time.time()
+        lost_sample = [IndexService.encode_key(tn, k) for tn in tenants
+                       for k in sorted(lost[tn])[:SVC_LOST_SAMPLE]]
+        before = dict(_build.LAUNCHES)
+        reachable = sum(index._builder.host_search(k)[0] for k in lost_sample)
+        check_launches = {k: _build.LAUNCHES[k] - before[k] for k in before}  # not the path's
+        say(f"phase service: data {data_s:.1f} s; bulk_load of tenants url "
+            f"({len(tenants['url'][0])} keys) and email ({N_EMAIL}) on the card {load_s:.1f} s; "
+            f"keys the bulk load lost: url {len(lost['url'])}, email {len(lost['email'])}, "
+            f"{reachable} of {len(lost_sample)} of them reachable by the builder's host walk "
+            f"({time.time() - t1:.1f} s); wrong values {wrong}; launches {load_launches}")
+        if wrong or reachable:
+            fail(f"the service's bulk load answers wrong values ({wrong}) or misses keys its "
+                 f"builder reaches ({reachable})")
+        # entry 0's key stays out of the clients' writes: a put to it is lost
+        # when a later op of its batch is not a base put, as in the reference
+        t0, k0 = index._builder.key_at(0).split(IndexService.encode_key("x", b"")[1:], 1)
+        pinned = {tn: {k0} if tn.encode() == t0 else set() for tn in tenants}
+        # client partitions of the keys the load kept, and of the fresh keys
+        parts = [{tn: [k for k in tenants[tn][0] if k not in lost[tn] and k not in pinned[tn]]
+                  [c::N_CLIENTS] for tn in tenants} for c in range(N_CLIENTS)]
+        fresh_parts = [{tn: fresh[tn][c::N_CLIENTS] for tn in tenants}
+                       for c in range(N_CLIENTS)]
+        work = [_service_workload(c, parts[c], fresh_parts[c], SEED * 1000 + c)
+                for c in range(N_CLIENTS)]
+        put_values = {}
+        oracles = [ServiceOracle({tn: {k: bulk[tn][k] for k in parts[c][tn]} for tn in tenants},
+                                 bulk, put_values) for c in range(N_CLIENTS)]
+        n_ops = sum(len(r) for w in work for _, r in w)
+        errors = []
+        barrier = threading.Barrier(N_CLIENTS + 1, timeout=600)
+
+        def client(c):
+            try:
+                barrier.wait()
+                for tn, reqs in work[c]:
+                    for r in reqs:
+                        if hasattr(r, "value"):  # known before the put can land
+                            put_values.setdefault((tn, r.key), set()).add(r.value)
+                    oracles[c].check(tn, reqs, svc.submit_batch(reqs, tn).result(timeout=600))
+            except BaseException as e:  # reported by the main thread
+                errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+        for th in threads:
+            th.start()
+        barrier.wait()
+        t = time.perf_counter()
+        for th in threads:
+            th.join(900)
+        traffic_s = time.perf_counter() - t
+        if any(th.is_alive() for th in threads) or errors:
+            fail(f"service clients did not finish: {errors[:4]}")
+        st = svc.stats()
+        bad = [b for o in oracles for b in o.bad]
+        refused = sum(o.refused for o in oracles)
+        say(f"phase service: {N_CLIENTS} clients, {n_ops} ops in groups of {SVC_GROUP} "
+            f"(per client {SVC_A_OPS} YCSB A zipf, {SVC_INSERTS} inserts, {SVC_E_OPS} YCSB E "
+            f"zipf scan_len 16) in {traffic_s:.1f} s = {n_ops / traffic_s:.0f} ops/s "
+            f"({smi}); p50 {st.p50_ms:.1f} ms p99 {st.p99_ms:.1f} ms per group; "
+            f"coalescing factor {st.coalescing_factor:.1f} ops a flush over {st.flushes} "
+            f"flushes; background merges {st.merges}, merge_pause_ms_max "
+            f"{st.merge_pause_ms_max:.1f}, merge_wall_ms {st.merge_wall_ms:.1f} (last), "
+            f"redrained_ops {st.redrained_ops}, maintenance_errors {st.maintenance_errors}; "
+            f"scans {sum(o.scans for o in oracles)} returning "
+            f"{sum(o.scan_entries for o in oracles)} entries; inserts refused for a full "
+            f"delta {refused}; results differing from the oracle {len(bad)} {bad[:3]}")
+        if bad:
+            fail("service results differ from the clients' oracle")
+        if st.merges < 2 or st.maintenance_errors or first.kept is None:
+            fail(f"service: {st.merges} background merges (want >= 2), "
+                 f"{st.maintenance_errors} maintenance errors: {st.last_maintenance_error}")
+        # every key of both tenants through the service, then a cursor pass
+        t = time.time()
+        final = {tn: {k: bulk[tn][k] for k in pinned[tn]} for tn in tenants}
+        for o in oracles:
+            for tn in tenants:
+                final[tn].update(o.state[tn])
+        n_wrong, n_keys, n_scanned = 0, 0, 0
+        for tn in tenants:
+            probe = list(tenants[tn][0]) + [k for k in fresh[tn] if k in final[tn]]
+            n_keys += len(probe)
+            for b in range(0, len(probe), BATCH):
+                chunk = probe[b: b + BATCH]
+                res = svc.execute([GetRequest(k) for k in chunk], tenant=tn, timeout=600)
+                for k, r in zip(chunk, res):
+                    want = final[tn].get(k)
+                    n_wrong += (r.status, r.value) != ((Status.OK, want) if want is not None
+                                                       else (Status.NOT_FOUND, None))
+            want_scan = sorted([(k, v) for k, v in final[tn].items() if v is not None]
+                               + [(k, bulk[tn][k]) for k in lost[tn]])
+            got_scan, page = [], svc.scan_page(b"", 16_384, tenant=tn)
+            while True:
+                got_scan.extend(page.entries)
+                if page.cursor is None:
+                    break
+                page = svc.scan_page(cursor=page.cursor, tenant=tn)
+            n_scanned += len(got_scan)
+            if got_scan != want_scan:
+                i = next((j for j, (a, b) in enumerate(zip(got_scan, want_scan)) if a != b),
+                         min(len(got_scan), len(want_scan)))
+                fail(f"service: the {tn} cursor pass differs from the oracle at entry {i} "
+                     f"(got {got_scan[i: i + 2]}, want {want_scan[i: i + 2]}; "
+                     f"{len(got_scan)} against {len(want_scan)} entries)")
+        launches = {k: n - check_launches[k] for k, n in _build.LAUNCHES.items()}
+        say(f"phase service: after the traffic, {n_keys} keys through the service, answers "
+            f"differing from the oracle {n_wrong}; scan_page pass of {n_scanned} entries "
+            f"equal to the oracle (the bulk load's lost keys included); {time.time() - t:.1f} s; "
+            f"launches {launches}")
+        if n_wrong:
+            fail(f"service: {n_wrong} keys answer differently from the oracle after the traffic")
+        for name in ("hpt_cdf", "hpt_locate", "fused_search", "scan"):
+            if launches[name] == 0:
+                fail(f"the service path never launched {name}")
+        diff, merge_entries, merge_cpu_s = first.replay()
+        say(f"phase service: the first background merge ({merge_entries} delta entries; the "
+            f"CPU copy taken as it started in {first.kept['copy_s']:.1f} s) replayed on the "
+            f"CPU in {merge_cpu_s:.1f} s: fields, height bound and sorted order differing from "
+            f"the card's {diff or 'none'}")
+        if diff:
+            fail(f"the service's first merge differs between the card and the CPU in {diff}")
+        numbers = {"ops_per_s": n_ops / traffic_s, "p50_ms": st.p50_ms, "p99_ms": st.p99_ms,
+                   "coalescing_factor": st.coalescing_factor, "merges": st.merges,
+                   "merge_pause_ms_max": st.merge_pause_ms_max,
+                   "merge_wall_ms": st.merge_wall_ms, "redrained_ops": st.redrained_ops}
+    finally:
+        svc.close()
+        first.close()
+    # every K2/K1 call of the bulk load against the build's outputs and the
+    # plain version (after the close: no service thread runs while the
+    # replay captures its CUDA graphs)
+    replay = replay_bulk_load(
+        load_calls, {"hpt_cdf": hpt_cdf.hpt_cdf_cuda, "hpt_locate": hpt_locate.hpt_locate_cuda},
+        {"hpt_cdf": hpt_cdf.hpt_cdf_plain, "hpt_locate": hpt_locate.hpt_locate_plain},
+        torch.device(DEVICE))
+    del load_calls
+    say("phase service: the bulk load's calls replayed: " + "; ".join(
+        f"{name} {r['launches']} launches (counted {load_launches[name]}) over {r['rows']} "
+        f"rows, outputs equal to the build's {r['equal_to_build']}, to the plain version on "
+        f"every launch {r['equal_to_plain']}" for name, r in replay.items()))
+    for name, r in replay.items():
+        if not (r["equal_to_build"] and r["equal_to_plain"]) or r["launches"] != load_launches[name]:
+            fail(f"the service's bulk load: its {name} calls replay differently or were "
+                 "miscounted")
+    return index, tenants, fresh, launches, numbers
+
+
+def snapshot_phase(index, tenants, fresh, rng):
+    """Phase snapshot: the service's index, with a live delta holding fresh
+    keys and tombstones, saved, then loaded on the card and on the CPU;
+    every field equal, and SNAP_GETS gets and SNAP_SCANS scans answer as the
+    live index does on both."""
+    from repro_torch.core.tensor_index import DATA_FIELDS, lookup_values
+    from repro_torch.index import IndexConfig, StringIndex
+    from repro_torch.serve import IndexService
+
+    enc = {tn: [IndexService.encode_key(tn, k) for k in tenants[tn][0][:200_000]]
+           for tn in tenants}
+    stored = enc["url"] + enc["email"]
+    extra = [IndexService.encode_key("email", k) for k in fresh["email"][-64:]]
+    # a live delta with fresh keys and tombstones, which no merge folds away
+    if index.delta_overflowed or index.delta_fill > 0.5:
+        index.merge()
+    index.config = dataclasses.replace(index.config, auto_merge_threshold=None)
+    index.put_batch(extra, np.arange(64))
+    index.delete_batch([stored[i] for i in rng.choice(len(stored), 64, replace=False)])
+    path = os.path.join(ROOT, "build", "chip_smoke_snapshot.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    try:
+        sync()
+        t = time.time()
+        index.save(path)
+        save_s = time.time() - t
+        mb = os.path.getsize(path) / 1e6
+        t = time.time()
+        card = StringIndex.load(path, IndexConfig(device=DEVICE))
+        sync()
+        card_s = time.time() - t
+        t = time.time()
+        cpu = StringIndex.load(path, IndexConfig(device="cpu"))
+        cpu_s = time.time() - t
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    diff = [f for f in DATA_FIELDS if not torch.equal(getattr(index.ti, f).cpu(),
+                                                      getattr(card.ti, f).cpu())
+            or not torch.equal(getattr(index.ti, f).cpu(), getattr(cpu.ti, f))]
+    q = [stored[i] for i in rng.integers(0, len(stored), SNAP_GETS - 128)] + extra + extra
+    starts = [stored[i][: int(n)] for i, n in zip(rng.integers(0, len(stored), SNAP_SCANS),
+                                                  rng.integers(1, 60, SNAP_SCANS))]
+    gets = [ix.get_batch(q) for ix in (index, card, cpu)]
+    same_gets = all(np.array_equal(a, b) for g in gets[1:] for a, b in zip(gets[0], g))
+    scans = []
+    for ix in (index, card, cpu):
+        eids, valid, isd = ix.scan_batch(starts, WINDOW)
+        scans.append([x.cpu() for x in (eids, valid, isd, *lookup_values(ix.ti, eids, isd))])
+    same_scans = all(torch.equal(a, b) for g in scans[1:] for a, b in zip(scans[0], g))
+    say(f"phase snapshot: the service's index ({int(index.ti.de_count)} live delta entries, "
+        f"{int(index.ti.de_tomb.sum())} tombstones, epoch {index.epoch}) saved in {save_s:.1f} s "
+        f"to {mb:.1f} MB; loaded on the card in {card_s:.1f} s and on the CPU in {cpu_s:.1f} s; "
+        f"fields differing {diff or 'none'}; {len(q)} gets equal on all three "
+        f"{same_gets}; {len(starts)} scans (window {WINDOW}) equal {same_scans}")
+    if diff or not (same_gets and same_scans):
+        fail("a loaded snapshot answers differently from the live index")
+    return {"mb": mb, "save_s": save_s, "load_card_s": card_s, "load_cpu_s": cpu_s}
+
+
 def main(parent: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -879,8 +1431,7 @@ def main(parent: bool = False) -> int:
         fail("the key of entry 0 is not reachable")
     found_keys = stored - missed
     # the CPU copy merges with a copy of the card's builder, in lockstep
-    cpu_index = StringIndex(cpu_builder(index._builder), dataclasses.replace(
-        ti0, **{f: getattr(ti0, f).cpu() for f in DATA_FIELDS}), IndexConfig(device="cpu"))
+    cpu_index = StringIndex(cpu_builder(index._builder), cpu_copy(ti0), IndexConfig(device="cpu"))
     rounds = write_rounds(np.random.default_rng(SEED + 1), keys, absent, found_keys, missed,
                           key0, W)
     base0, lost, bad_masks, write_ms, replay_s = val_of[key0], 0, 0, [], 0.0
@@ -968,7 +1519,21 @@ def main(parent: bool = False) -> int:
     else:
         merge_launches = merge_phase(index, cpu_index, rounds, live, absent, found_keys,
                                      stored, missed, keys, val_of, scan_batches, smi, W)
+    no_launches = {k: 0 for k in _build.LAUNCHES}
+    if parent:
+        say("phase execute, service, snapshot: skipped (--parent: the package predates them)")
+        exec_launches = svc_launches = no_launches
+    else:
+        # 9b. one mixed execute batch on the card's index and its CPU copy
+        exec_launches, _ = execute_phase(index, cpu_index, keys, absent,
+                                         np.random.default_rng(SEED + 4))
     del cpu_index
+    if not parent:
+        # 9c. the request plane: two tenants, eight clients, background
+        #     merges; 9d. a snapshot of its index, loaded on the card and CPU
+        svc_index, tenants, fresh, svc_launches, _ = service_phase(keys, absent, values, smi)
+        snapshot_phase(svc_index, tenants, fresh, np.random.default_rng(SEED + 5))
+        del svc_index, tenants, fresh
 
     # 10. one-hot GetCDF path: ops.hpt_cdf(variant="onehot") launches K7, never K2
     qb_np, ql_np = pad_queries(batches[0], W)
@@ -1086,6 +1651,11 @@ def main(parent: bool = False) -> int:
     else:
         say("phase kernels: underflow rows skipped (--parent: the package predates the flush)")
 
+    # K4, K5 and K6 on rows too wide for a block's shared memory
+    wide = {} if parent else wide_phase(dev)
+    if parent:
+        say("phase wide: skipped (--parent: the package refuses rows too wide to stage)")
+
     sqb, sql = index._queries(first)
     k5 = rank.fused_rank_cuda(ti0, sqb, sql)
     rank_trace, scan_trace, scan_empty_trace = [], {}, {}
@@ -1128,8 +1698,8 @@ def main(parent: bool = False) -> int:
             f"{r['p90_rows']:.0f}, largest {r['max_rows']}; {r['ms']:.4f} ms in all = "
             f"{r['ms_per_launch'] * 1e3:.3f} us a launch (graph of as many 1-element adds: "
             f"{r['floor_ms']:.4f} ms); bound {r['bound_ms']:.5f} ms; outputs equal to the "
-            f"build's {r['equal_to_build']}, to the plain version on {r['plain_sample']} "
-            f"launches {r['equal_to_plain']}")
+            f"build's {r['equal_to_build']}, to the plain version on every launch "
+            f"{r['equal_to_plain']}")
         if not (r["equal_to_build"] and r["equal_to_plain"]):
             fail(f"the bulk load's {name} calls replay differently")
         if r["launches"] != main_launches[name]:
@@ -1207,9 +1777,15 @@ def main(parent: bool = False) -> int:
     # rows is how the TPU kernel worked, not what the function needs
     flops = {"fused_search": 0.0, "hpt_cdf": cdf_flops, "hpt_locate": locate_flops,
              "cnode_probe": 0.0, "hpt_cdf_onehot": cdf_flops, "rank": 0.0, "scan": 0.0}
+    # `launches` is the main path's count (the range pass's for K5 and K6);
+    # every path's own count is in `launches_by_path`
     launches = dict(main_launches)
     launches.update(rank=range_launches["rank"], scan=range_launches["scan"],
                     hpt_cdf_onehot=onehot_path_launches)
+    by_path = {k: {"main": main_launches[k], "write": write_launches[k],
+                   "range": range_launches[k] if k in ("rank", "scan") else 0,
+                   "merge": sum(m.get(k, 0) for m in merge_launches),
+                   "execute": exec_launches[k], "service": svc_launches[k]} for k in launches}
     rows = []
     for name, (src, replaces) in KERNELS.items():
         args, kern, plain = inputs[name]
@@ -1220,7 +1796,9 @@ def main(parent: bool = False) -> int:
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": max_abs_err(g, w),
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "library_ms": None, "launches_by_path": by_path[name]})
+        if name in wide:
+            rows[-1]["wide_rows"] = wide[name]
         if name in replay:  # K2/K1 at the bulk load's own launch shapes
             rows[-1]["bulk_load_replay"] = {k: replay[name][k] for k in (
                 "launches", "rows", "median_rows", "ms", "ms_per_launch", "floor_ms",
@@ -1228,7 +1806,7 @@ def main(parent: bool = False) -> int:
             rows[-1]["merge_launches"] = [m[name] for m in merge_launches]
         say(f"phase times: {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.5f} ms "
             f"by {b_by}, {nbytes[name]} bytes, {flops[name]:.0f} float ops), "
-            f"path launches {launches[name]}")
+            f"main path launches {launches[name]}, by path {by_path[name]}")
     if main_launches["cnode_probe"] == 0:
         say("phase times: cnode_probe runs inline in every fused_search launch "
             f"({main_launches['fused_search']} on the main path); its own entry is "
@@ -1291,6 +1869,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", action="store_true",
                     help="skip the phases an older package cannot pass: compaction, the "
-                         "flush check of the float ops, K7's non-finite tables and the "
-                         "underflow rows")
+                         "flush check of the float ops, K7's non-finite tables, the "
+                         "underflow rows, execute, the service, snapshots and wide rows")
     sys.exit(main(ap.parse_args().parent))

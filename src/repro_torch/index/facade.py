@@ -1,22 +1,32 @@
 """`StringIndex` — the port's application-facing index.
 
-The counterpart of :class:`repro.index.StringIndex` for bulk load, batched
-point lookups, writes and range scans:
+The counterpart of :class:`repro.index.StringIndex`:
 
-* :class:`IndexConfig` — width, delta-buffer sizing, builder policy and the
-  ``device`` everything runs on (default ``"cuda"``; there is no fallback to
-  the CPU, pass ``device="cpu"`` for the plain versions).
+* :class:`IndexConfig` — width, delta-buffer sizing, builder policy, the
+  default scan window and the ``device`` everything runs on (default
+  ``"cuda"``; there is no fallback to the CPU, pass ``device="cpu"`` for the
+  plain versions).  The reference's ``search_backend``/``kernel_backend``
+  fields and their environment variables have no counterpart: the device
+  alone decides the path.
 * :meth:`StringIndex.bulk_load` — paper Sec. 3.1 bulkload to a frozen
   device index; :meth:`StringIndex.from_builder` wraps a loaded builder.
-* :meth:`StringIndex.get_batch` / :meth:`StringIndex.get` — point lookups.
-* :meth:`StringIndex.put_batch` / :meth:`StringIndex.delete_batch` — upserts
+* Typed batched ops — :class:`GetRequest` / :class:`PutRequest` /
+  :class:`ScanRequest` / :class:`DeleteRequest` in, :class:`BatchResult`
+  out, with per-op :class:`Status` codes (failures are data, not
+  exceptions); :meth:`StringIndex.execute` runs a mixed batch as grouped
+  dispatches: puts, then deletes, then gets, then one scan per distinct
+  window.
+* The batch primitives: :meth:`StringIndex.get_batch`,
+  :meth:`StringIndex.put_batch` / :meth:`StringIndex.delete_batch` (upserts
   and tombstones in the device delta buffer; a batch that leaves the delta
-  at ``auto_merge_threshold`` of its entries, or that overflowed it, merges.
-* :meth:`StringIndex.scan_batch` — delta-aware range scans.
+  at ``auto_merge_threshold`` of its entries, or that overflowed it,
+  merges) and :meth:`StringIndex.scan_batch` (delta-aware range scans).
 * :meth:`StringIndex.merge` — compaction: the delta replayed into the host
   builder, a refreeze, the swap; composed of ``begin_merge``/``run_merge``/
   ``commit_merge`` (or ``abort_merge``), between which writes land on the
   live index and are journaled, then replayed onto the merged one.
+* :meth:`StringIndex.save` / :meth:`StringIndex.load` — versioned snapshots
+  in the reference's format (:mod:`repro_torch.index.snapshot`).
 
 The device decides the path: on the card the builder places keys with K2/K1
 (bulk loads and a merge's replay), lookups and the write path's base walk
@@ -26,7 +36,8 @@ the reference's answers bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import enum
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,6 +51,8 @@ from repro_torch.core.tensor_index import (
 )
 from repro_torch.kernels._build import resolve_device
 
+from .snapshot import load_index, save_index
+
 
 @dataclasses.dataclass(frozen=True)
 class IndexConfig:
@@ -50,8 +63,85 @@ class IndexConfig:
     delta_bytes: Optional[int] = None    # delta byte pool (None: capacity-derived)
     delta_probes: int = 16               # open-addressing probe bound
     auto_merge_threshold: Optional[float] = 0.75  # None disables auto-compaction
+    scan_window: int = 16                # default ScanRequest window
     builder: Optional[LITSConfig] = None  # host build policy (cnode cap, HPT shape)
     device: str = "cuda"                 # where the index lives and the kernels run
+
+
+class Status(enum.IntEnum):
+    """Per-op result codes, the reference's: failures are data, never exceptions."""
+
+    OK = 0
+    NOT_FOUND = 1            # GET: key absent
+    REJECTED_OVER_WIDTH = 2  # key longer than the index width (unrepresentable)
+    REJECTED_FULL = 3        # PUT/DELETE: delta pool full (merge and retry)
+    UNSUPPORTED = 4          # op not available on this implementation
+    ROUTING_OVERFLOW = 5     # distributed: a shard's routing capacity was exceeded
+    OVERLOADED = 6           # service admission control shed this op: back off, retry
+    FORBIDDEN = 7            # tenant isolation: a scan cursor of another tenant
+
+
+@dataclasses.dataclass(frozen=True, slots=True)
+class GetRequest:
+    key: bytes
+
+
+@dataclasses.dataclass(frozen=True, slots=True)
+class PutRequest:
+    key: bytes
+    value: int
+
+
+@dataclasses.dataclass(frozen=True, slots=True)
+class ScanRequest:
+    start: bytes
+    window: Optional[int] = None   # None -> IndexConfig.scan_window
+
+
+@dataclasses.dataclass(frozen=True, slots=True)
+class DeleteRequest:
+    key: bytes
+
+
+Request = Union[GetRequest, PutRequest, ScanRequest, DeleteRequest]
+
+
+@dataclasses.dataclass(frozen=True, slots=True)
+class OpResult:
+    status: Status
+    value: Optional[int] = None       # GET hit: the stored 64-bit value
+    updated: bool = False             # PUT: the key existed and its value was updated
+    entries: Optional[Tuple[Tuple[bytes, int], ...]] = None  # SCAN results
+
+    @property
+    def ok(self) -> bool:
+        return self.status == Status.OK
+
+
+# results without a payload, shared: they are frozen
+_PUT_OK = OpResult(Status.OK)
+_PUT_UPDATED = OpResult(Status.OK, updated=True)
+_DELETED = OpResult(Status.OK)
+_NOT_FOUND = OpResult(Status.NOT_FOUND)
+_REJECTED_OVER_WIDTH = OpResult(Status.REJECTED_OVER_WIDTH)
+_REJECTED_FULL = OpResult(Status.REJECTED_FULL)
+OVERLOADED_RESULT = OpResult(Status.OVERLOADED)
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """``execute`` output: per-op results in request order and the batch's effects."""
+
+    results: List[OpResult]
+    n_get: int = 0
+    n_put: int = 0
+    n_scan: int = 0
+    n_delete: int = 0
+    merged: bool = False              # a merge ran during this batch
+    delta_fill: float = 0.0           # fill fraction after the batch
+
+    def statuses(self) -> List[Status]:
+        return [r.status for r in self.results]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +202,32 @@ def _join_values(lo, hi) -> np.ndarray:
     return (hi << 32) | lo
 
 
-class StringIndex:
+class StringIndexBase:
+    """What every StringIndex implementation provides: ``execute`` and
+    ``get_batch``, and the one mapping of get answers to results."""
+
+    config: IndexConfig
+
+    def execute(self, batch: Sequence[Request]) -> BatchResult:
+        raise NotImplementedError
+
+    def get_batch(self, keys: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
+        raise NotImplementedError
+
+    @staticmethod
+    def _map_get_results(gets, found, vals, width: int, results) -> None:
+        """(found, values) arrays -> an OpResult per get, written into
+        ``results`` at the get's position in its batch."""
+        for (i, req), f, v in zip(gets, found.tolist(), vals.tolist()):
+            if len(req.key) > width:
+                results[i] = _REJECTED_OVER_WIDTH
+            elif f:
+                results[i] = OpResult(Status.OK, value=v)
+            else:
+                results[i] = _NOT_FOUND
+
+
+class StringIndex(StringIndexBase):
     """Single-device LITS over the HPT + sub-trie + PMSS hybrid."""
 
     def __init__(self, builder: Optional[LITSBuilder], ti: TensorIndex,
@@ -162,6 +277,19 @@ class StringIndex:
                     delta_bytes=cfg.delta_bytes, delta_probes=cfg.delta_probes,
                     device=resolve_device(cfg.device))
         return cls(builder, ti, cfg)
+
+    def save(self, path: str) -> None:
+        """Versioned snapshot of the whole index (base and live delta)."""
+        save_index(self.ti, path)
+
+    @classmethod
+    def load(cls, path: str, config: Optional[IndexConfig] = None) -> "StringIndex":
+        """Restore a snapshot onto ``config.device``.  ``config`` gives the
+        run-time policy (merge threshold, scan window, device); the width and
+        the delta's sizing come from the snapshot.  The host builder is
+        rebuilt from the pools at the first merge."""
+        cfg = config or IndexConfig()
+        return cls(None, load_index(path, device=resolve_device(cfg.device)), cfg)
 
     @property
     def width(self) -> int:
@@ -265,6 +393,119 @@ class StringIndex:
     def get(self, key: bytes) -> Optional[int]:
         found, vals = self.get_batch([key])
         return int(vals[0]) if found[0] else None
+
+    def put(self, key: bytes, value: int) -> OpResult:
+        return self.execute([PutRequest(key, value)]).results[0]
+
+    def delete(self, key: bytes) -> OpResult:
+        return self.execute([DeleteRequest(key)]).results[0]
+
+    def scan(self, start: bytes, window: Optional[int] = None) -> List[Tuple[bytes, int]]:
+        res = self.execute([ScanRequest(start, window)]).results[0]
+        return list(res.entries or ())
+
+    def execute(self, batch: Sequence[Request]) -> BatchResult:
+        """Run a mixed GET/PUT/SCAN/DELETE batch as grouped dispatches.
+
+        Puts apply first (one ``put_batch``), then deletes (one
+        ``delete_batch``: a delete beats a put of the same key in the
+        batch), then gets (one ``get_batch``) and scans (one ``scan_batch``
+        per distinct window, one copy to the host each) see the index after
+        the writes.  Failures come back as :class:`Status` codes; only a
+        request of an unknown type raises.
+        """
+        results: List[Optional[OpResult]] = [None] * len(batch)
+        gets: List[Tuple[int, GetRequest]] = []
+        puts: List[Tuple[int, PutRequest]] = []
+        dels: List[Tuple[int, DeleteRequest]] = []
+        scans: List[Tuple[int, ScanRequest]] = []
+        for i, req in enumerate(batch):
+            if isinstance(req, GetRequest):
+                gets.append((i, req))
+            elif isinstance(req, PutRequest):
+                puts.append((i, req))
+            elif isinstance(req, DeleteRequest):
+                dels.append((i, req))
+            elif isinstance(req, ScanRequest):
+                scans.append((i, req))
+            else:
+                raise TypeError(f"unknown request type: {type(req).__name__}")
+
+        merged = False
+        width = self.ti.width
+        if puts:
+            ins, upd, merged = self.put_batch([r.key for _, r in puts],
+                                              [r.value for _, r in puts])
+            for (i, req), in_, up in zip(puts, ins.tolist(), upd.tolist()):
+                if len(req.key) > width:
+                    results[i] = _REJECTED_OVER_WIDTH
+                elif in_ or up:
+                    results[i] = _PUT_UPDATED if up else _PUT_OK
+                else:
+                    results[i] = _REJECTED_FULL
+
+        if dels:
+            deleted, rejected, dmerged = self.delete_batch([r.key for _, r in dels])
+            merged = merged or dmerged
+            for (i, req), d, rej in zip(dels, deleted.tolist(), rejected.tolist()):
+                if len(req.key) > width:
+                    results[i] = _REJECTED_OVER_WIDTH
+                elif d:
+                    results[i] = _DELETED
+                elif rej:
+                    results[i] = _REJECTED_FULL
+                else:
+                    results[i] = _NOT_FOUND
+
+        if gets:
+            found, vals = self.get_batch([r.key for _, r in gets])
+            self._map_get_results(gets, found, vals, width, results)
+
+        if scans:
+            by_window: Dict[int, List[Tuple[int, ScanRequest]]] = {}
+            for i, req in scans:
+                w = self.config.scan_window if req.window is None else req.window
+                by_window.setdefault(w, []).append((i, req))
+            pool, ent_off, ent_len = self._host_entries()
+            for w, group in by_window.items():
+                self._scan_group(group, w, pool, ent_off, ent_len, results)
+
+        return BatchResult(
+            results=results,  # type: ignore[arg-type]
+            n_get=len(gets), n_put=len(puts), n_scan=len(scans),
+            n_delete=len(dels), merged=merged, delta_fill=self._delta_fill,
+        )
+
+    def _scan_group(self, group, window, pool, ent_off, ent_len, results) -> None:
+        """One scan group of ``execute``: one ``scan_batch``, then one copy
+        to the host of the windows, their values and, with a live delta,
+        the delta entries' key bytes, gathered on the device with every
+        index clamped as the reference's gathers clip."""
+        ti = self.ti
+        eids, valid, isd = self.scan_batch([r.start for _, r in group], window)
+        vlo, vhi = lookup_values(ti, eids.clamp(min=0), isd)
+        fetch = [eids, valid, isd, vlo, vhi]
+        if self._delta_fill > 0.0:
+            e = eids.clamp(0, ti.de_off.shape[0] - 1).long()
+            didx = (ti.de_off[e].long()[..., None]
+                    + torch.arange(ti.width, device=ti.device)).clamp(max=ti.db_bytes.shape[0] - 1)
+            fetch += [ti.de_len[e], ti.db_bytes[didx]]
+        got = [t.cpu().numpy() for t in fetch]
+        eids, valid, isd, vlo, vhi = got[:5]
+        dlen, dbytes = got[5:] if len(got) > 5 else (None, None)
+        vals = _join_values(vlo, vhi)
+        for row, (i, _req) in enumerate(group):
+            entries = []
+            for col, (e, v, ok, d) in enumerate(zip(eids[row].tolist(), vals[row].tolist(),
+                                                    valid[row].tolist(), isd[row].tolist())):
+                if not ok:
+                    continue
+                if d:
+                    key = dbytes[row, col, : dlen[row, col]].tobytes()
+                else:
+                    key = pool[ent_off[e]: ent_off[e] + ent_len[e]].tobytes()
+                entries.append((key, v))
+            results[i] = OpResult(Status.OK, entries=tuple(entries))
 
     # -- compaction --------------------------------------------------------
 
@@ -377,3 +618,7 @@ class StringIndex:
             self._host_pool = tuple(t.cpu().numpy() for t in (
                 self.ti.key_bytes, self.ti.ent_off, self.ti.ent_len))
         return self._host_pool
+
+    def _entry_key(self, eid: int) -> bytes:
+        pool, ent_off, ent_len = self._host_entries()
+        return pool[ent_off[eid]: ent_off[eid] + ent_len[eid]].tobytes()

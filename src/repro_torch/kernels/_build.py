@@ -10,8 +10,8 @@ at first use, and :func:`build_all` starts one ``nvcc`` per source at once.
 Every C entry point takes its pointers and the CUDA stream as ``void*``,
 launches on that stream and returns ``cudaGetLastError()``; :func:`launch`
 raises if that is not 0.  The wrapper that calls :func:`launch` adds one to
-its entry in :data:`LAUNCHES`, so a run can show which kernels it went
-through.
+its entry in :data:`LAUNCHES` (:func:`count_launch`), so a run can show
+which kernels it went through.
 """
 from __future__ import annotations
 
@@ -41,14 +41,24 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "hpt_cdf", "hpt_locate", "cnode_probe", "fused_search", "rank", "scan", "hpt_cdf_onehot")}
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+# builds, loads and derived tables, which threads of one process share (a
+# service's flusher and maintenance threads both reach the kernels)
+_lock = threading.RLock()
+_count_lock = threading.Lock()
 # (kind, id of the first source) -> (weak refs to the sources, their versions, table)
 _DERIVED: Dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to :data:`LAUNCHES`."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def resolve_device(device) -> torch.device:
@@ -129,13 +139,11 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        out = _lib_path(name)
-        if not out.exists():
-            build_all([name])
-        with _lock:
+        with _lock:  # one thread builds and loads it; the others wait for it
             lib = _libs.get(name)
             if lib is None:
-                lib = ctypes.CDLL(str(out))
+                build_all([name])
+                lib = ctypes.CDLL(str(_lib_path(name)))
                 _libs[name] = lib
     return lib
 
@@ -151,16 +159,28 @@ def launch(lib_name: str, fn_name: str, argtypes, *args) -> None:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
 
 
-def check_stage_width(W: int, dev: torch.device) -> None:
-    """Refuse query rows too wide for K4, K5 and K6 to stage one of them in
-    a block's shared memory (``stage_stride(W)`` 32-bit words of
-    ``csrc/lits_words.cuh``; past 48 KB the kernels opt in to more, up to
-    the device's limit: 227 KB on an H100)."""
-    need = 4 * (((W + 3) // 4) | 1)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if need > limit:
-        raise ValueError(f"query width {W}: a staged row takes {need} bytes of shared "
-                         f"memory, more than the {limit} a block can have")
+def wide_rows(qbytes: torch.Tensor, lanes: int):
+    """``(padded, (ptr, rows))`` for K4, K5 and K6, which take ``lanes``
+    threads per query row.  Where one staged row, ``stage_stride(W)`` 32-bit
+    words of ``csrc/lits_words.cuh``, passes the shared memory a block can
+    have (227 KB on an H100, so widths past about 232,000 bytes), ``padded``
+    is every row in the staged layout in device memory, made by one copy:
+    that stride, zero past W and in the rows that fill the last block.  The
+    kernels read it in place (``lits::block_stage``), ``rows`` rows a
+    block: the fewest (a power of two, at most 64 threads) that put every
+    row on an SM of its own or, for more rows than SMs, spread them evenly.
+    ``(None, (None, 0))`` for every narrower row, which the kernels stage in
+    shared memory.  The caller holds ``padded`` until it has launched."""
+    B, W = qbytes.shape
+    S = ((W + 3) // 4) | 1
+    props = torch.cuda.get_device_properties(qbytes.device)
+    if 4 * S <= props.shared_memory_per_block_optin:
+        return None, (None, 0)
+    rows = 1
+    while 2 * rows * lanes <= 64 and rows * props.multi_processor_count < B:
+        rows *= 2
+    padded = torch.nn.functional.pad(qbytes, (0, 4 * S - W, 0, -B % rows))
+    return padded, (padded.data_ptr(), rows)
 
 
 def derived(kind: str, sources: Sequence[torch.Tensor],
@@ -169,16 +189,18 @@ def derived(kind: str, sources: Sequence[torch.Tensor],
     made once per set of source tensors and kept while the first of them
     lives.  It is made again when a source is another tensor or has been
     written in place (a new tensor version), so it is never stale.  It is
-    derived state: no field of the index and no part of a snapshot."""
+    derived state: no field of the index and no part of a snapshot.  Threads
+    that ask at once for the same sources get one table."""
     key = (kind, id(sources[0]))
     versions = tuple(t._version for t in sources)
-    hit = _DERIVED.get(key)
-    if hit is not None and hit[1] == versions and all(
-            ref() is t for ref, t in zip(hit[0], sources)):
-        return hit[2]
-    table = make(*sources)
-    refs = [weakref.ref(sources[0], lambda _ref: _DERIVED.pop(key, None))]
-    _DERIVED[key] = (refs + [weakref.ref(t) for t in sources[1:]], versions, table)
+    with _lock:
+        hit = _DERIVED.get(key)
+        if hit is not None and hit[1] == versions and all(
+                ref() is t for ref, t in zip(hit[0], sources)):
+            return hit[2]
+        table = make(*sources)
+        refs = [weakref.ref(sources[0], lambda _ref: _DERIVED.pop(key, None))]
+        _DERIVED[key] = (refs + [weakref.ref(t) for t in sources[1:]], versions, table)
     return table
 
 

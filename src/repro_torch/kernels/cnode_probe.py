@@ -40,7 +40,7 @@ def cnode_probe_cuda(hashes, qhash, cnt, frm) -> torch.Tensor:
     _build.launch("cnode_probe", "lits_cnode_probe", [P, P, P, P, I, I, P],
                   hashes.data_ptr(), qhash.data_ptr(), cnt.data_ptr(), frm.data_ptr(),
                   B, K, out.data_ptr())
-    _build.LAUNCHES["cnode_probe"] += 1
+    _build.count_launch("cnode_probe")
     return out
 
 

@@ -12,7 +12,11 @@
 // cp.async or TMA: those move aligned 4-, 8- or 16-byte units, and a row of
 // W = 94 bytes lands on a 100-byte stride, so its bytes shift against every
 // alignment.  A stage of 256 rows of W = 94 is 25,600 bytes, so eight
-// blocks fit in an SM's shared memory; registers allow four.
+// blocks fit in an SM's shared memory; registers allow four.  A row too
+// wide for a block's shared memory (W past 232,000 bytes on an H100) is not
+// copied by the kernel: the wrapper lays all rows out at once in device
+// memory with the same stride and zero padding (kernels/_build.py,
+// wide_rows), and the kernel reads its rows there in place (block_stage).
 //
 // Word compares.  A key's bytes [off, off + n) are read as the aligned
 // 16-byte chunks of its pool that cover them, funnel-shifted into words
@@ -50,13 +54,33 @@ __host__ inline int stage_rows_per_block(int W, int lanes) {
 
 #ifdef __CUDACC__
 // Let `kernel` take a stage of `bytes`: one row wider than kStageDefault (W
-// past 49,000 bytes) opts in to more, which fails past the device's limit
-// (227 KB on an H100).  The wrappers refuse such widths before a launch.
+// past 49,000 bytes) opts in to more, up to the device's limit (227 KB on
+// an H100).
 template <class Kernel>
 cudaError_t allow_stage(Kernel* kernel, size_t bytes) {
   if (bytes <= kStageDefault) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The launch of a kernel with `lanes` threads per query row: its blocks,
+// rows per block and dynamic shared memory.  A non-zero `wide_rows` (rows
+// too wide to stage, read in place from the wrapper's padded matrix) takes
+// that many rows a block and no shared memory; otherwise a block stages
+// stage_rows_per_block rows, and `narrow`, the kernel that stages them,
+// opts in to a stage past kStageDefault.
+struct StageLaunch {
+  int grid, rows;
+  size_t bytes;
+  cudaError_t err;
+};
+
+template <class Kernel>
+StageLaunch stage_launch(Kernel* narrow, int B, int W, int lanes, int wide_rows) {
+  if (wide_rows > 0) return {(B + wide_rows - 1) / wide_rows, wide_rows, 0, cudaSuccess};
+  const int rows = stage_rows_per_block(W, lanes);
+  const size_t bytes = static_cast<size_t>(rows) * stage_stride(W) * 4;
+  return {(B + rows - 1) / rows, rows, bytes, allow_stage(narrow, bytes)};
 }
 #endif
 
@@ -111,6 +135,27 @@ __device__ __forceinline__ void stage_rows(const uint8_t* __restrict__ q, long l
   }
   __syncthreads();
 }
+
+#ifdef __CUDACC__
+// The staged rows [r0, r0 + rows) of a block: copied into shared memory by
+// stage_rows, or, for rows too wide for it, the block's part of the
+// wrapper's (blocks * rows, S) matrix `padded`, which holds them in the
+// staged layout already (kernels/_build.py, wide_rows) and is read in
+// place.  The word functions read a row through a generic pointer, so the
+// rest of a kernel does not change.
+template <bool kWide>
+__device__ __forceinline__ const uint32_t* block_stage(const uint8_t* __restrict__ q,
+                                                       const uint32_t* padded, long long B,
+                                                       int W, long long r0, int rows, int S) {
+  if constexpr (kWide) {
+    return padded + r0 * S;
+  } else {
+    extern __shared__ uint32_t lits_stage[];
+    stage_rows(q, B, W, r0, rows, lits_stage, S);
+    return lits_stage;
+  }
+}
+#endif
 
 // 1 + the index of the last nonzero byte of a staged row (0 if none).
 __device__ __forceinline__ int row_extent(const uint32_t* row, int S) {

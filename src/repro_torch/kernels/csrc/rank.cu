@@ -37,14 +37,14 @@ constexpr int G = 4;   // lanes per query
 constexpr int kC = 1;  // 16-byte chunks a compare reads per round trip, as K6
 constexpr unsigned kGroupBits = (1u << G) - 1u;
 
+template <bool kWide>
 __global__ void __launch_bounds__(lits::kBlock)
 rank_kernel(const int4* __restrict__ rec, long long n_rec, const uint8_t* __restrict__ pool,
             long long npool, const uint8_t* __restrict__ q, const int* __restrict__ qlens,
-            int B, int W, int S, int* __restrict__ out) {
+            int B, int W, int S, int* __restrict__ out, const uint32_t* padded) {
   const int rows = blockDim.x / G;  // queries per block
-  extern __shared__ uint32_t stage[];
   const long long r0 = static_cast<long long>(blockIdx.x) * rows;
-  lits::stage_rows(q, B, W, r0, rows, stage, S);
+  const uint32_t* stage = lits::block_stage<kWide>(q, padded, B, W, r0, rows, S);
   const int g = threadIdx.x / G;
   const int lane = threadIdx.x % G;
   const int gshift = (threadIdx.x % 32) / G * G;
@@ -62,16 +62,15 @@ rank_kernel(const int4* __restrict__ rec, long long n_rec, const uint8_t* __rest
 
 }  // namespace
 
+// A non-zero `wide_rows` reads that many rows per block in place from
+// `padded` (rows too wide for shared memory; lits::block_stage).
 extern "C" int lits_rank(const int4* rec, long long n_rec, const uint8_t* pool, long long npool,
                          const uint8_t* q, const int* qlens, int B, int W, int* out,
-                         void* stream) {
-  const int S = lits::stage_stride(W);
-  const int rows = lits::stage_rows_per_block(W, G);
-  const size_t bytes = static_cast<size_t>(rows) * S * 4;
-  const cudaError_t e = lits::allow_stage(rank_kernel, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int grid = (B + rows - 1) / rows;
-  rank_kernel<<<grid, rows * G, bytes, static_cast<cudaStream_t>(stream)>>>(
-      rec, n_rec, pool, npool, q, qlens, B, W, S, out);
+                         const uint32_t* padded, int wide_rows, void* stream) {
+  const lits::StageLaunch l = lits::stage_launch(rank_kernel<false>, B, W, G, wide_rows);
+  if (l.err != cudaSuccess) return static_cast<int>(l.err);
+  auto* kernel = wide_rows > 0 ? rank_kernel<true> : rank_kernel<false>;
+  kernel<<<l.grid, l.rows * G, l.bytes, static_cast<cudaStream_t>(stream)>>>(
+      rec, n_rec, pool, npool, q, qlens, B, W, lits::stage_stride(W), out, padded);
   return static_cast<int>(cudaGetLastError());
 }

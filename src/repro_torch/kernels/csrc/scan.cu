@@ -73,14 +73,14 @@ constexpr int G = 4;    // lanes per query
 constexpr int kC = 1;   // 16-byte chunks a compare reads per round trip
 constexpr unsigned kGroupBits = (1u << G) - 1u;
 
+template <bool kWide>
 __global__ void __launch_bounds__(lits::kBlock)
 scan_kernel(const ScanPools p, const uint8_t* __restrict__ q, const int* __restrict__ qlens,
             int B, int W, int S, int window, int* __restrict__ eids, bool* __restrict__ valid,
-            bool* __restrict__ is_delta) {
+            bool* __restrict__ is_delta, const uint32_t* padded) {
   const int rows = blockDim.x / G;  // queries per block
-  extern __shared__ uint32_t stage[];
   const long long r0 = static_cast<long long>(blockIdx.x) * rows;
-  lits::stage_rows(q, B, W, r0, rows, stage, S);
+  const uint32_t* stage = lits::block_stage<kWide>(q, padded, B, W, r0, rows, S);
   const int g = threadIdx.x / G;
   const int lane = threadIdx.x % G;
   const int gshift = (threadIdx.x % 32) / G * G;
@@ -211,17 +211,16 @@ scan_kernel(const ScanPools p, const uint8_t* __restrict__ q, const int* __restr
 }  // namespace
 
 // A block holds kBlock / G rows, fewer for rows so wide that the stage
-// would pass 48 KB (widths past 764 bytes).
+// would pass 48 KB (widths past 764 bytes).  A non-zero `wide_rows` reads
+// that many rows per block in place from `padded` instead (rows too wide
+// for shared memory; lits::block_stage).
 extern "C" int lits_scan(const ScanPools* pools, const uint8_t* q, const int* qlens, int B,
                          int W, int window, int* eids, bool* valid, bool* is_delta,
-                         void* stream) {
-  const int S = lits::stage_stride(W);
-  const int rows = lits::stage_rows_per_block(W, G);
-  const size_t bytes = static_cast<size_t>(rows) * S * 4;
-  const cudaError_t e = lits::allow_stage(scan_kernel, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int grid = (B + rows - 1) / rows;
-  scan_kernel<<<grid, rows * G, bytes, static_cast<cudaStream_t>(stream)>>>(
-      *pools, q, qlens, B, W, S, window, eids, valid, is_delta);
+                         const uint32_t* padded, int wide_rows, void* stream) {
+  const lits::StageLaunch l = lits::stage_launch(scan_kernel<false>, B, W, G, wide_rows);
+  if (l.err != cudaSuccess) return static_cast<int>(l.err);
+  auto* kernel = wide_rows > 0 ? scan_kernel<true> : scan_kernel<false>;
+  kernel<<<l.grid, l.rows * G, l.bytes, static_cast<cudaStream_t>(stream)>>>(
+      *pools, q, qlens, B, W, lits::stage_stride(W), window, eids, valid, is_delta, padded);
   return static_cast<int>(cudaGetLastError());
 }

@@ -72,14 +72,15 @@ namespace {
 constexpr int kPrefixChunks = 2;  // 32 key bytes per round trip: most prefixes differ early
 constexpr int kEqChunks = 6;      // 96 key bytes per round trip: an equality reads the whole key
 
+template <bool kWide>
 __global__ void __launch_bounds__(lits::kBlock)
 fused_search_kernel(const LitsPools p, const uint8_t* __restrict__ q,
                     const int* __restrict__ qlens, int B, int W, int S, int max_iters,
                     int cnode_cap, int cdf_steps, int* __restrict__ found,
-                    int* __restrict__ eid, int* __restrict__ levels) {
-  extern __shared__ uint32_t stage[];
+                    int* __restrict__ eid, int* __restrict__ levels,
+                    const uint32_t* padded) {
   const long long r0 = static_cast<long long>(blockIdx.x) * blockDim.x;
-  lits::stage_rows(q, B, W, r0, blockDim.x, stage, S);
+  const uint32_t* stage = lits::block_stage<kWide>(q, padded, B, W, r0, blockDim.x, S);
   const long long b = r0 + threadIdx.x;
   if (b >= B) return;  // no barrier follows
   const uint32_t* row = stage + threadIdx.x * S;
@@ -158,17 +159,18 @@ fused_search_kernel(const LitsPools p, const uint8_t* __restrict__ q,
 }  // namespace
 
 // Rows per block: kBlock, fewer for rows so wide that the stage would pass
-// 48 KB (widths past 188 bytes).
+// 48 KB (widths past 188 bytes).  A non-zero `wide_rows` reads that many
+// rows per block in place from `padded` instead (rows too wide for shared
+// memory; lits::block_stage).
 extern "C" int lits_fused_search(const LitsPools* pools, const uint8_t* q, const int* qlens,
                                  int B, int W, int max_iters, int cnode_cap, int cdf_steps,
-                                 int* found, int* eid, int* levels, void* stream) {
-  const int S = lits::stage_stride(W);
-  const int rows = lits::stage_rows_per_block(W, 1);
-  const size_t bytes = static_cast<size_t>(rows) * S * 4;
-  const cudaError_t e = lits::allow_stage(fused_search_kernel, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int grid = (B + rows - 1) / rows;
-  fused_search_kernel<<<grid, rows, bytes, static_cast<cudaStream_t>(stream)>>>(
-      *pools, q, qlens, B, W, S, max_iters, cnode_cap, cdf_steps, found, eid, levels);
+                                 int* found, int* eid, int* levels, const uint32_t* padded,
+                                 int wide_rows, void* stream) {
+  const lits::StageLaunch l = lits::stage_launch(fused_search_kernel<false>, B, W, 1, wide_rows);
+  if (l.err != cudaSuccess) return static_cast<int>(l.err);
+  auto* kernel = wide_rows > 0 ? fused_search_kernel<true> : fused_search_kernel<false>;
+  kernel<<<l.grid, l.rows, l.bytes, static_cast<cudaStream_t>(stream)>>>(
+      *pools, q, qlens, B, W, lits::stage_stride(W), max_iters, cnode_cap, cdf_steps, found,
+      eid, levels, padded);
   return static_cast<int>(cudaGetLastError());
 }

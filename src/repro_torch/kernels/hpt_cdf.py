@@ -168,7 +168,7 @@ def hpt_cdf_onehot_cuda(qbytes, qlens, start, cdf_tab, prob_tab,
         qbytes.data_ptr(), qlens.data_ptr(), start.data_ptr(), cdf_tab.data_ptr(),
         prob_tab.data_ptr(), cdf_bad.data_ptr(), prob_bad.data_ptr(), B, L, R, C,
         int(max_steps), out.data_ptr())
-    _build.LAUNCHES["hpt_cdf_onehot"] += 1
+    _build.count_launch("hpt_cdf_onehot")
     return out
 
 
@@ -184,7 +184,7 @@ def hpt_cdf_cuda(qbytes, qlens, start, cdf_tab, prob_tab,
         "hpt_cdf", "lits_hpt_cdf", [P, P, P, P, P, I, I, I, I, I, P],
         qbytes.data_ptr(), qlens.data_ptr(), start.data_ptr(), cdf_tab.data_ptr(),
         prob_tab.data_ptr(), B, L, R, C, int(max_steps), out.data_ptr())
-    _build.LAUNCHES["hpt_cdf"] += 1
+    _build.count_launch("hpt_cdf")
     return out
 
 

@@ -104,7 +104,7 @@ def hpt_locate_cuda(qbytes, qlens, start, alpha, beta, nslots, cdf_tab, prob_tab
         qbytes.data_ptr(), qlens.data_ptr(), start.data_ptr(), alpha.data_ptr(),
         beta.data_ptr(), nslots.data_ptr(), cdf_tab.data_ptr(), prob_tab.data_ptr(),
         B, L, R, C, int(max_steps), out.data_ptr())
-    _build.LAUNCHES["hpt_locate"] += 1
+    _build.count_launch("hpt_locate")
     return out
 
 

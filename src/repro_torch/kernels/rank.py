@@ -53,7 +53,6 @@ def check_queries(ti, qbytes, qlens):
         raise ValueError(f"query width {W} != index width {ti.width}")
     _build.check(qbytes, "qbytes", torch.uint8, (B, W), qbytes.device)
     _build.check(qlens, "qlens", torch.int32, (B,), qbytes.device)
-    _build.check_stage_width(W, qbytes.device)
     return B, W
 
 
@@ -75,11 +74,12 @@ def fused_rank_cuda(ti, qbytes, qlens) -> torch.Tensor:
     check_rank_iters(ti)
     rec = order_records(srt, off, ln)
     out = torch.empty(B, dtype=torch.int32, device=dev)
+    padded, wide = _build.wide_rows(qbytes, 4)  # held past the launch
     if B:
-        _build.launch("rank", "lits_rank", [_P, _N, _P, _N, _P, _P, _I, _I, _P],
+        _build.launch("rank", "lits_rank", [_P, _N, _P, _N, _P, _P, _I, _I, _P, _P, _I],
                       rec.data_ptr(), rec.shape[0], pool.data_ptr(), pool.shape[0],
-                      qbytes.data_ptr(), qlens.data_ptr(), B, W, out.data_ptr())
-        _build.LAUNCHES["rank"] += 1
+                      qbytes.data_ptr(), qlens.data_ptr(), B, W, out.data_ptr(), *wide)
+        _build.count_launch("rank")
     return out
 
 

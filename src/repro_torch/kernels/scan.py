@@ -59,12 +59,13 @@ def fused_scan_cuda(ti, qbytes, qlens, *, window: int):
     eids = torch.empty((B, window), dtype=torch.int32, device=dev)
     valid = torch.empty((B, window), dtype=torch.bool, device=dev)
     is_delta = torch.empty((B, window), dtype=torch.bool, device=dev)
+    padded, wide = _build.wide_rows(qbytes, 4)  # held past the launch
     if B:
         _build.launch("scan", "lits_scan",
-                      [ctypes.POINTER(ScanPools), _P, _P, _I, _I, _I, _P, _P, _P],
+                      [ctypes.POINTER(ScanPools), _P, _P, _I, _I, _I, _P, _P, _P, _P, _I],
                       ctypes.byref(pools), qbytes.data_ptr(), qlens.data_ptr(), B, W, window,
-                      eids.data_ptr(), valid.data_ptr(), is_delta.data_ptr())
-        _build.LAUNCHES["scan"] += 1
+                      eids.data_ptr(), valid.data_ptr(), is_delta.data_ptr(), *wide)
+        _build.count_launch("scan")
     return eids, valid, is_delta
 
 

@@ -81,19 +81,19 @@ def fused_search_cuda(ti, qbytes, qlens):
         raise ValueError(f"query width {W} != index width {ti.width}")
     _build.check(qbytes, "qbytes", torch.uint8, (B, W), dev)
     _build.check(qlens, "qlens", torch.int32, (B,), dev)
-    _build.check_stage_width(W, dev)
     pools = _pools(ti, dev)
+    padded, wide = _build.wide_rows(qbytes, 1)  # held past the launch
     found = torch.empty(B, dtype=torch.int32, device=dev)
     eid = torch.empty(B, dtype=torch.int32, device=dev)
     levels = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
         I = ctypes.c_int
         _build.launch("traverse", "lits_fused_search",
-                      [ctypes.POINTER(LitsPools), _P, _P, I, I, I, I, I, _P, _P, _P],
+                      [ctypes.POINTER(LitsPools), _P, _P, I, I, I, I, I, _P, _P, _P, _P, I],
                       ctypes.byref(pools), qbytes.data_ptr(), qlens.data_ptr(), B, W,
                       ti.max_iters, ti.cnode_cap, ti.cdf_steps,
-                      found.data_ptr(), eid.data_ptr(), levels.data_ptr())
-        _build.LAUNCHES["fused_search"] += 1
+                      found.data_ptr(), eid.data_ptr(), levels.data_ptr(), *wide)
+        _build.count_launch("fused_search")
     return found != 0, eid, levels
 
 

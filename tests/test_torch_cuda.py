@@ -547,21 +547,132 @@ def test_cuda_wide_rows_match_plain(cuda, B, width, pools):
             assert _build.LAUNCHES[name] == before[name] + 1
 
 
-def test_cuda_refuses_rows_too_wide_to_stage(cuda):
-    """K4, K5 and K6 refuse a width whose one staged row would pass the
-    shared memory a block can have, before any launch."""
-    from types import SimpleNamespace
+def _stage_limit_widths(dev):
+    """The widest row a block can stage in shared memory and the next width,
+    which stages in device memory: ``4 * stage_stride(W)`` bytes against the
+    device's opt-in limit."""
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    under = 4 * (limit // 4)
+    while 4 * (((under + 3) // 4) | 1) > limit:
+        under -= 1
+    over = under + 1
+    while 4 * (((over + 3) // 4) | 1) <= limit:
+        over += 1
+    return under, over
 
+
+@pytest.mark.parametrize("width", ["under", "over", 240_000, 300_000])
+def test_cuda_rows_past_stage_limit_match_plain(cuda, width):
+    """K4, K5 and K6 equal their plain versions on rows too wide to stage in
+    shared memory, which they read in place from the wrapper's padded matrix
+    in device memory instead, and on the widest rows that still stage in
+    shared memory ("under"; "over" is the next width), with an empty and a
+    live delta: on 37 rows (a row a block) and on 141 (more rows than an
+    H100's 132 SMs: two a block, the last block filled with a padding row)."""
     from repro_torch.kernels import scan
 
-    W = 240_000
-    ti = SimpleNamespace(width=W)
-    qb = torch.zeros((1, W), dtype=torch.uint8, device=cuda)
-    ql = torch.ones(1, dtype=torch.int32, device=cuda)
+    under, over = _stage_limit_widths(cuda)
+    W = {"under": under, "over": over}.get(width, width)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B in (1, 37, 141):
+        for lanes in (1, 4):
+            padded, (_, rows) = _build.wide_rows(
+                torch.zeros(B, W, dtype=torch.uint8, device=cuda), lanes)
+            assert (padded is None) == (width == "under") == (rows == 0)
+            if padded is not None:
+                assert rows == 1 if B <= n_sm else rows > 1
+                assert padded.shape[0] % rows == 0 and padded.shape[0] - B < rows
+    empty, live = _word_indexes(W, wide_edge_case)
+    _, _, queries, starts = wide_edge_case(W)
+    for B in (37, 141):
+        for ti, rows in ((empty, queries), (live, starts)):
+            qb, ql = _dev(cuda, *pad_queries(word_rows(rows, B), W))
+            before = dict(_build.LAUNCHES)
+            for a, b in zip(traverse.fused_search_cuda(ti, qb, ql),
+                            traverse.fused_search_plain(ti, qb, ql)):
+                assert torch.equal(a, b)
+            assert torch.equal(rank.fused_rank_cuda(ti, qb, ql),
+                               rank.fused_rank_plain(ti, qb, ql))
+            for a, b in zip(scan.fused_scan_cuda(ti, qb, ql, window=WORD_WINDOW),
+                            scan.fused_scan_plain(ti, qb, ql, window=WORD_WINDOW)):
+                assert torch.equal(a, b)
+            torch.cuda.synchronize()
+            for name in ("fused_search", "rank", "scan"):
+                assert _build.LAUNCHES[name] == before[name] + 1
+
+
+def _mixed_requests(keys, rng, n=3000):
+    """Puts of fresh keys and of stored ones, deletes, gets and scans of two
+    windows, in random order."""
+    from repro_torch.index import DeleteRequest, GetRequest, PutRequest, ScanRequest
+
+    pick = rng.choice(len(keys), 800, replace=False)
+    reqs = ([PutRequest(b"fresh/%05d" % i, int(v)) for i, v in enumerate(
+                rng.integers(-(1 << 62), 1 << 62, 600))]
+            + [PutRequest(keys[i], -int(i)) for i in pick[:500]]
+            + [DeleteRequest(keys[i]) for i in pick[500:]]
+            + [DeleteRequest(b"fresh/%05d" % i) for i in range(0, 600, 7)]
+            + [ScanRequest(keys[i][:12], 16 if i % 2 else 64) for i in pick[:200]])
+    reqs += [GetRequest(keys[i]) for i in rng.integers(0, len(keys), n - len(reqs) - 200)]
+    reqs += [GetRequest(b"fresh/%05d" % i) for i in range(0, 600, 3)]
+    return [reqs[i] for i in rng.permutation(len(reqs))]
+
+
+def _cpu_copy(ix):
+    from repro_torch.core.tensor_index import DATA_FIELDS
+    from repro_torch.index import IndexConfig, StringIndex
+
+    ti = dataclasses.replace(ix.ti, **{f: getattr(ix.ti, f).cpu() for f in DATA_FIELDS})
+    return StringIndex(None, ti, dataclasses.replace(ix.config, device="cpu"))
+
+
+def test_cuda_execute_matches_cpu(cuda):
+    """One mixed ``execute`` batch on the card (K4 for gets and the write
+    path's walk, K6 for scans) gives the results of the same batch on a CPU
+    copy of the index, and leaves the same pools."""
+    from repro_torch.core.tensor_index import DATA_FIELDS
+
+    keys, ix = _live_index("cuda")
+    cpu = _cpu_copy(ix)
+    batch = _mixed_requests(keys, np.random.default_rng(31))
     before = dict(_build.LAUNCHES)
-    for call in (lambda: traverse.fused_search_cuda(ti, qb, ql),
-                 lambda: rank.fused_rank_cuda(ti, qb, ql),
-                 lambda: scan.fused_scan_cuda(ti, qb, ql, window=WORD_WINDOW)):
-        with pytest.raises(ValueError, match="shared memory"):
-            call()
-    assert _build.LAUNCHES == before
+    got = ix.execute(batch)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_search"] > before["fused_search"]
+    assert _build.LAUNCHES["scan"] == before["scan"] + 2
+    want = cpu.execute(batch)
+    assert got.results == want.results
+    assert (got.merged, got.delta_fill) == (want.merged, want.delta_fill)
+    for f in DATA_FIELDS:
+        assert torch.equal(getattr(ix.ti, f).cpu(), getattr(cpu.ti, f)), f
+
+
+def test_cuda_snapshot_loads_on_cpu(cuda, tmp_path):
+    """A snapshot saved from the card, with a live delta and tombstones,
+    loads with ``device="cpu"`` and on the card, and both answer as the
+    live index does."""
+    from repro_torch.core.tensor_index import DATA_FIELDS
+    from repro_torch.index import IndexConfig, StringIndex
+
+    keys, ix = _live_index("cuda")
+    ix.execute(_mixed_requests(keys, np.random.default_rng(32)))
+    path = str(tmp_path / "card.snap")
+    ix.save(path)
+    cfg = dict(auto_merge_threshold=None)
+    cpu = StringIndex.load(path, IndexConfig(device="cpu", **cfg))
+    card = StringIndex.load(path, IndexConfig(device="cuda", **cfg))
+    for f in DATA_FIELDS:
+        assert torch.equal(getattr(ix.ti, f).cpu(), getattr(cpu.ti, f)), f
+    rng = np.random.default_rng(33)
+    probe = [keys[i] for i in rng.integers(0, len(keys), 4000)] + [b"fresh/%05d" % i
+                                                                   for i in range(600)]
+    want = ix.get_batch(probe)
+    for other in (cpu, card):
+        for a, b in zip(want, other.get_batch(probe)):
+            np.testing.assert_array_equal(a, b)
+    starts = [k[:10] for k in probe[:2000]]
+    want = [t.cpu() for t in ix.scan_batch(starts, 16)]
+    for other in (cpu, card):
+        for a, b in zip(want, other.scan_batch(starts, 16)):
+            assert torch.equal(a, b.cpu())
+    assert ix.scan(b"", 40) == cpu.scan(b"", 40) == card.scan(b"", 40)

@@ -219,3 +219,61 @@ def test_word_primitives_match_byte_loops(tmp_path):
     assert run.returncode == 0, run.stdout + run.stderr
     cases, word_path, bad = (int(x) for x in re.findall(r"\d+", run.stdout.splitlines()[-1]))
     assert bad == 0 and cases > 300_000 and word_path > cases // 3
+
+
+def _threads(n, fn):
+    """Run ``fn(i)`` in ``n`` threads released together, with the switch
+    interval shortened so that they interleave; each must end."""
+    import sys
+    import threading
+
+    barrier = threading.Barrier(n, timeout=60)
+    out = [None] * n
+
+    def run(i):
+        barrier.wait()
+        out[i] = fn(i)
+
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(saved)
+    return out
+
+
+def test_derived_table_made_once_across_threads():
+    """Eight threads asking at once for the table of one set of sources get
+    one table, made once."""
+    import time
+
+    from repro_torch.kernels import _build
+
+    srcs = (torch.arange(5000, dtype=torch.float32), torch.ones(5000))
+    made = []
+
+    def make(a, b):
+        made.append(1)
+        time.sleep(0.01)  # a slow make: the other threads arrive meanwhile
+        return torch.stack([a, b], dim=-1).contiguous()
+
+    tables = _threads(8, lambda i: _build.derived("thread_test", srcs, make))
+    assert len(made) == 1 and all(t is tables[0] for t in tables)
+
+
+def test_launch_counts_exact_across_threads():
+    """Counts added from eight threads at once lose no launch."""
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    try:
+        _threads(8, lambda i: [_build.count_launch("scan") for _ in range(5000)])
+        assert _build.LAUNCHES["scan"] == 8 * 5000
+    finally:
+        _build.reset_launches()
