@@ -21,11 +21,11 @@ size on one 1,000,000-key synthetic URL index:
   the sorted order and the lost keys equal, then lookups of every touched
   key and a range pass against the oracle; each merge's time on the card's
   clock, with its parts;
-* ``execute``: one mixed batch of 65,536 typed requests (puts of
+* ``execute``: one mixed batch of 16,384 typed requests (puts of
   never-stored keys, value updates, deletes, gets, scans at windows 16 and
   64) on the card's index and on its CPU copy, every result equal;
-* the request plane: ``IndexService.bulk_load`` of two tenants (the 1M url
-  keys and 250,000 email keys) on the card, eight client threads over
+* the request plane: ``IndexService.bulk_load`` of two tenants (250,000 of
+  the url keys and 100,000 email keys) on the card, eight client threads over
   disjoint key partitions submitting YCSB A, inserts and YCSB E in
   ``submit_batch`` groups of 256, every result against each client's
   oracle, background merges, then every key and a ``scan_page`` pass of
@@ -36,7 +36,16 @@ size on one 1,000,000-key synthetic URL index:
   and again on a copy with inf, -inf and NaN entries in columns the
   queries read and in columns they do not;
 * K4, K5 and K6 on rows of 262,144 bytes, too wide for a block's shared
-  memory, which they stage in device memory.
+  memory, which they stage in device memory;
+* the distributed index: ``build_sharded`` of the 1M url keys into 4
+  CDF-range shards on the card, 16 lookup batches of the main mix through
+  the in-process routed ``get_batch``, a batch at a capacity that must
+  overflow, ``scan_entries`` with starts just below every shard's end, an
+  ``IndexService`` over a sharded index of tenant-encoded keys with 8
+  clients, and the process-group form with one NCCL rank; every answer
+  against the host's reckoning, which counts the reference's lost keys,
+  routing misses (no ε recheck at the boundaries) and padded-order scan
+  windows.
 
 Every GetCDF (K2) and locate (K1) call of a second bulk load of the same
 keys (so that the recorder stays out of the timed one) is recorded and
@@ -57,7 +66,7 @@ before/after run): the phases that package cannot pass are skipped, each
 with a line that says so: the compaction phase, the check that the
 GetCDF/locate kernels' float ops all flush subnormals, the K7 phase with
 non-finite tables, the kernel-versus-plain checks on the underflow rows,
-and the execute, service, snapshot and wide-row phases.
+and the execute, service, snapshot, wide-row and distributed phases.
 Without it every phase runs.
 
 Output: one line per phase, then a JSON line of per-kernel numbers, then
@@ -91,19 +100,31 @@ N_SUBSET = 100_000          # keys of the cuda-vs-cpu structure check
 SEED = 0
 DEVICE = "cuda"
 WIDE_W = 262_144            # phase wide: a row past a block's shared memory
+# the execute, service and wide phases run at these depths so that the whole
+# script, the distributed phase included, stays well inside its time limit
 WIDE_ROWS = 64              # phase wide: query rows
-EXEC_OPS = 65_536           # phase execute: ops of the one mixed batch
-EXEC_SCANS = 1_024          # ... of which scans, half at window 16, half at 64
-N_EMAIL = 250_000           # phase service: stored email keys
+EXEC_OPS = 16_384           # phase execute: ops of the one mixed batch
+EXEC_SCANS = 256            # ... of which scans, half at window 16, half at 64
+SVC_URL_KEYS = 250_000      # phase service: stored url keys (the first of the phase data's)
+N_EMAIL = 100_000           # phase service: stored email keys
 N_CLIENTS = 8               # phase service: client threads
 SVC_LOST_SAMPLE = 512       # phase service: lost keys of a tenant walked on the host
 SVC_GROUP = 256             # ops per submit_batch group
-SVC_A_OPS = 5_000           # per client: YCSB A (zipf) ops
+SVC_A_OPS = 2_500           # per client: YCSB A (zipf) ops
 SVC_INSERTS = 1_000         # per client: inserts of never-stored keys
-SVC_E_OPS = 1_000           # per client: YCSB E (zipf, scan_len 16) ops
+SVC_E_OPS = 500             # per client: YCSB E (zipf, scan_len 16) ops
 SVC_MERGE_THRESHOLD = 0.6   # the service's background merge trigger
 SNAP_GETS = 65_536          # phase snapshot: gets and scans on each copy
 SNAP_SCANS = 16_384
+DIST_SHARDS = 4             # phase distributed: shards of the url keys
+DIST_BATCHES = 16           # ... get_batch batches of BATCH queries (the main mix)
+DIST_CAPACITY = 8_192       # ... per_dest_capacity: twice the mean rows a (sender, owner)
+DIST_TIGHT = 2_048          # ... the capacity of the batch that must overflow
+DIST_SCANS = 16_384         # ... starts a scan_entries batch, two batches
+DIST_SVC_KEYS = 100_000     # ... url keys, tenant-encoded, of the service's sharded index
+DIST_CLIENTS = 8            # ... service client threads
+DIST_SVC_GETS = 2_048       # ... YCSB C (zipf) gets a client, in groups of SVC_GROUP
+DIST_NCCL_KEYS = 100_000    # ... keys of the one-rank NCCL check
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
@@ -313,15 +334,22 @@ def replay_bound_ms(name, args):
 
 def plain_over_calls(plain, arglist, chunk: int = 1 << 18) -> torch.Tensor:
     """``plain`` over the rows of every call in ``arglist`` (the ``*_cuda``
-    signature) at once, in chunks of rows: the calls of one build share
-    the tables and the step count (the last three arguments), and a row's
-    result depends on its own arguments only.  The outputs in call order."""
-    tail = arglist[0][-3:]
-    if any(a[-3] is not tail[0] or a[-2] is not tail[1] or a[-1] != tail[2] for a in arglist):
-        fail("the recorded calls do not share their tables and step count")
-    cols = [torch.cat([a[i] for a in arglist]) for i in range(len(arglist[0]) - 3)]
-    return torch.cat([plain(*(c[i: i + chunk] for c in cols), *tail)
-                      for i in range(0, cols[0].shape[0], chunk)])
+    signature), each run of calls that share the tables and the step count
+    (the last three arguments: the calls of one builder) at once, in chunks
+    of rows: a row's result depends on its own arguments only.  The outputs
+    in call order."""
+    out, i = [], 0
+    while i < len(arglist):
+        tail = arglist[i][-3:]
+        j = i + 1
+        while j < len(arglist) and arglist[j][-3] is tail[0] and arglist[j][-2] is tail[1] \
+                and arglist[j][-1] == tail[2]:
+            j += 1
+        cols = [torch.cat([a[k] for a in arglist[i:j]]) for k in range(len(arglist[i]) - 3)]
+        out += [plain(*(c[r: r + chunk] for c in cols), *tail)
+                for r in range(0, cols[0].shape[0], chunk)]
+        i = j
+    return torch.cat(out)
 
 
 def replay_bulk_load(rec, kernels, plains, dev):
@@ -1030,8 +1058,9 @@ class ServiceOracle:
 
 def service_phase(keys, absent, values, smi):
     """Phase service: ``IndexService.bulk_load`` of two tenants on the card
-    (url: the phase data's stored keys; email: N_EMAIL keys), N_CLIENTS client
-    threads over disjoint key partitions of both, each submitting its
+    (url: SVC_URL_KEYS of the phase data's stored keys; email: N_EMAIL
+    keys), N_CLIENTS client threads over disjoint key partitions of both,
+    each submitting its
     workload (:func:`_service_workload`) in ``submit_batch`` groups and
     waiting on each, every result held to the client's oracle; then every
     key of both tenants through the service and a ``scan_page`` pass over
@@ -1056,7 +1085,7 @@ def service_phase(keys, absent, values, smi):
     t = time.time()
     emails = synthetic.load("email", 2 * N_EMAIL, seed=SEED)
     perm = rng.permutation(len(emails))
-    tenants = {"url": (keys, values),
+    tenants = {"url": (keys[:SVC_URL_KEYS], values[:SVC_URL_KEYS]),
                "email": ([emails[i] for i in perm[:N_EMAIL]],
                          rng.integers(-(1 << 62), 1 << 62, N_EMAIL))}
     fresh = {"url": absent, "email": [emails[i] for i in perm[N_EMAIL:]]}
@@ -1294,6 +1323,446 @@ def snapshot_phase(index, tenants, fresh, rng):
     if diff or not (same_gets and same_scans):
         fail("a loaded snapshot answers differently from the live index")
     return {"mb": mb, "save_s": save_s, "load_card_s": card_s, "load_cpu_s": cpu_s}
+
+
+@contextlib.contextmanager
+def first_calls(owner, name, n: int = 1):
+    """The arguments of the first ``n`` calls of ``owner.name`` inside the block."""
+    calls, fn = [], getattr(owner, name)
+
+    def call(*args, **kwargs):
+        if len(calls) < n:
+            calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(owner, name, call)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def bulk_loads(cls):
+    """Each ``cls.bulkload`` inside the block: (builder, seconds to a sync)."""
+    loads, fn = [], cls.bulkload
+
+    def call(self, *args, **kwargs):
+        t = time.time()
+        out = fn(self, *args, **kwargs)
+        sync()
+        loads.append((self, time.time() - t))
+        return out
+
+    cls.bulkload = call
+    try:
+        yield loads
+    finally:
+        cls.bulkload = fn
+
+
+@contextlib.contextmanager
+def stage_clock(owner, names, split):
+    """Card time of each call of ``owner``'s functions ``names`` inside the
+    block, a sync before and after each, summed into ``split`` by name."""
+    saved = {name: getattr(owner, name) for name in names}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[name] = split.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(owner, name, timed(name, fn))
+    try:
+        yield split
+    finally:
+        for name, fn in saved.items():
+            setattr(owner, name, fn)
+
+
+def padded_search(r: int, m: int, N: int, pad_below: bool, iters: int) -> int:
+    """The reference's rank over a shard's sorted order of ``m`` keys padded
+    to ``N`` rows with its smallest key: its binary search, ``iters`` steps,
+    goes right at a row below the true rank ``r`` and at a pad row whose key
+    is below the start (``pad_below``)."""
+    lo, hi = 0, N
+    for _ in range(iters):
+        mid = (lo + hi) // 2
+        if lo < hi and (mid < r if mid < m else pad_below):
+            lo = mid + 1
+        elif lo < hi:
+            hi = mid
+    return lo
+
+
+def scan_oracle(shard_keys, val_of, N: int, iters: int, starts, window: int):
+    """What the reference's ``scan_entries`` answers, from the host's key
+    lists alone: each shard's window over its sorted keys, padded to ``N``
+    rows with its smallest key (``padded_search``), concatenated in shard
+    order; and how many of those windows differ from the plain sorted order
+    of all keys (``everything``)."""
+    out = []
+    for s in starts:
+        win = []
+        for ks in shard_keys:
+            if len(win) >= window or not ks:
+                continue
+            m = len(ks)
+            r = bisect.bisect_left(ks, s)
+            lo = r if m == N else padded_search(r, m, N, ks[0] < s, iters)
+            for p in range(lo, min(lo + window, N)):
+                if len(win) >= window:
+                    break
+                k = ks[p] if p < m else ks[0]
+                win.append((k, val_of[k]))
+        out.append(win)
+    return out
+
+
+def distributed_phase(keys, values, batches, smi, dev):
+    """Phase distributed: ``build_sharded`` of the phase data's url keys into
+    DIST_SHARDS shards on the card; DIST_BATCHES of the main phase's lookup
+    batches through the in-process ``get_batch``; one batch at DIST_TIGHT that
+    must overflow; two ``scan_entries`` batches with starts just below every
+    boundary; an ``IndexService`` over the index with DIST_CLIENTS clients;
+    a one-rank NCCL group.  Every answer is held to the host's reckoning
+    (lost keys, routing misses and padded-order windows included), and K1,
+    K2, K4 and K6 to their plain versions on the phase's own inputs.
+    Returns the phase's kernel launches and its numbers."""
+    import threading
+
+    import torch.distributed as dist
+
+    from repro_torch.core.builder import LITSBuilder
+    from repro_torch.core.hpt import HPT, MAX_CDF_STEPS, get_cdf_np64
+    from repro_torch.core.strings import StringSet
+    from repro_torch.core.tensor_index import pad_queries
+    from repro_torch.data import ycsb
+    from repro_torch.distributed import (
+        DistributedStringIndex, RoutingOverflowError, build_sharded, index_service)
+    from repro_torch.index import GetRequest, IndexConfig, PutRequest, Status
+    from repro_torch.kernels import _build, hpt_cdf, hpt_locate, scan, traverse
+    from repro_torch.kernels._build import as_rows
+    from repro_torch.serve import IndexService, ServiceConfig
+
+    cfg = IndexConfig(device=DEVICE)
+    _build.reset_launches()
+    sync()
+    t = time.time()
+    with ModelCalls().on(LITSBuilder) as calls, bulk_loads(LITSBuilder) as loads:
+        sidx = build_sharded(keys, values, DIST_SHARDS, device=DEVICE)
+        dsi = DistributedStringIndex(sidx, per_dest_capacity=DIST_CAPACITY, config=cfg)
+    sync()
+    build_s = time.time() - t
+    probe_s, shard_s = loads[0][1], [sec for _, sec in loads[1:]]
+    builders = [b for b, _ in loads[1:]]
+    n, W = DIST_SHARDS, sidx.width
+    say(f"phase distributed: build_sharded of {len(keys)} url keys into {n} shards on the card "
+        f"in {build_s:.2f} s (probe bulk load {probe_s:.2f} s, shard bulk loads "
+        f"{', '.join(f'{x:.2f}' for x in shard_s)} s); boundaries {sidx.boundaries.tolist()}; "
+        f"sorted entries per shard {list(sidx.sorted_lens)}; width {W}; max_iters "
+        f"{sidx.stacked.max_iters}, rank_iters {sidx.stacked.rank_iters}")
+    say(f"distributed_build_s={build_s:.2f}")
+
+    # the host's reckoning: each stored key's build shard (host float64
+    # GetCDF cast to float32, as build_sharded partitions) and each shard's
+    # lost keys (entries its builder's tree no longer reaches)
+    t = time.time()
+    hpt = HPT(sidx.stacked.cdf_tab[0].cpu().numpy(), sidx.stacked.prob_tab[0].cpu().numpy())
+    skeys = sorted(keys)
+    cdfs = get_cdf_np64(hpt, StringSet.from_list(skeys)).astype(np.float32)
+    shard_of = dict(zip(skeys, np.searchsorted(sidx.boundaries, cdfs, side="right").tolist()))
+    at_boundary = [int((cdfs == b).sum()) for b in sidx.boundaries]
+    del cdfs
+    shard_keys = [[] for _ in range(n)]
+    for k in skeys:
+        shard_keys[shard_of[k]].append(k)
+    lost = []
+    for b in builders:
+        reach = set(b.iter_subtree(b.root_item))
+        lost.append({b.key_at(e) for e in range(b.ent_off.n) if e not in reach})
+    sample = [k for s in lost for k in sorted(s)[:SVC_LOST_SAMPLE // n]]
+    reachable = sum(builders[shard_of[k]].host_search(k)[0] for k in sample)
+    if [len(ks) for ks in shard_keys] != list(sidx.sorted_lens) or reachable:
+        fail(f"distributed: the host's partition {[len(ks) for ks in shard_keys]} is not the "
+             f"build's {list(sidx.sorted_lens)}, or {reachable} lost keys are reachable")
+    reckon_s = time.time() - t
+
+    # lookups: the main phase's batches, routed
+    val_of = dict(zip(keys, values.tolist()))
+    lookups = batches[:DIST_BATCHES]
+    with first_calls(index_service, "base_search") as k4_calls, \
+            first_calls(index_service, "get_cdf") as k2_calls:
+        sync()
+        t = time.time()
+        answers = [dsi.get_batch(q) for q in lookups]
+        get_s = time.time() - t
+    lookup_launches = dict(_build.LAUNCHES)
+    n_q = sum(len(q) for q in lookups)
+    say(f"distributed_lookups_per_s={n_q / get_s:.0f}")
+    # each query's owner by the plain GetCDF (run on the card), against the
+    # build shard and the answers
+    ct, pt = sidx.stacked.cdf_tab[0].contiguous(), sidx.stacked.prob_tab[0].contiguous()
+    bnd = torch.from_numpy(sidx.boundaries).to(dev)
+    owners = []
+    for q in lookups:
+        qb, ql = (torch.from_numpy(a).to(dev) for a in pad_queries(q, W))
+        plain = hpt_cdf.hpt_cdf_plain(qb, as_rows(ql, len(q), torch.int32, dev),
+                                      as_rows(0, len(q), torch.int32, dev), ct, pt, MAX_CDF_STEPS)
+        owners.append(torch.searchsorted(bnd, plain, right=True).cpu().numpy())
+    wrong = false_hits = unexplained = 0
+    miss_lost, miss_routed, routed_away = set(), set(), set()
+    for q, (found, got), own in zip(lookups, answers, owners):
+        for k, f, v, o in zip(q, found.tolist(), got.tolist(), own.tolist()):
+            home = shard_of.get(k)
+            if home is None:
+                false_hits += f
+            elif o != home:
+                routed_away.add(k)
+                if f:
+                    unexplained += 1
+                else:
+                    miss_routed.add(k)
+            elif f:
+                wrong += v != val_of[k]
+            elif k in lost[home]:
+                miss_lost.add(k)
+            else:
+                unexplained += 1
+    want_lost = {k for q in lookups for k in q if k in shard_of and k in lost[shard_of[k]]
+                 and k not in routed_away}
+    say(f"phase distributed: get_batch of {n_q} queries in {len(lookups)} batches of {BATCH} "
+        f"(the main mix) at per_dest_capacity {DIST_CAPACITY}: {get_s:.2f} s = "
+        f"{n_q / get_s:.0f} lookups/s ({smi}); wrong values {wrong}, hits on keys never stored "
+        f"{false_hits}, misses not explained {unexplained}; launches {lookup_launches}; host "
+        f"reckoning {reckon_s:.1f} s")
+    say(f"distributed_lost_keys={len(miss_lost)} (queried; the shard builds lose "
+        f"{[len(x) for x in lost]}, host reckoning {len(want_lost)})")
+    say(f"distributed_routing_misses={len(miss_routed)} (stored keys whose router CDF "
+        f"buckets away from their build shard; host reckoning {len(routed_away)}; stored keys "
+        f"whose host float32 CDF equals a boundary: {at_boundary})")
+    if (wrong or false_hits or unexplained or miss_lost != want_lost
+            or miss_routed != routed_away):
+        fail("distributed lookups differ from the host's reckoning")
+
+    # overflow: one batch at a capacity its owner histogram passes
+    q = lookups[0]
+    per_sender = owners[0].reshape(n, -1)
+    dropped = sum(int(np.maximum(np.bincount(o, minlength=n) - DIST_TIGHT, 0).sum())
+                  for o in per_sender)
+    tight = DistributedStringIndex(sidx, per_dest_capacity=DIST_TIGHT, config=cfg)
+    try:
+        tight.get_batch(q)
+        raised = None
+    except RoutingOverflowError as e:
+        raised = str(e)
+    statuses = collections.Counter(r.status.name for r in tight.execute(
+        [GetRequest(k) for k in q]).results)
+    say(f"phase distributed: one batch at per_dest_capacity {DIST_TIGHT}: raised {raised!r}; "
+        f"the host reckons {dropped} dropped rows; execute statuses {dict(statuses)}")
+    if not raised or not raised.startswith(f"{dropped} queries exceeded") or \
+            statuses != {"ROUTING_OVERFLOW": len(q)}:
+        fail("the overflow batch did not overflow as the host reckons")
+
+    # scans: starts just below every boundary, and the main mix's keys
+    rng = np.random.default_rng(SEED + 6)
+    cuts = np.cumsum([len(ks) for ks in shard_keys])
+    near = [skeys[min(max(c - 1 - j, 0), len(skeys) - 1)] for c in cuts
+            for j in range(DIST_SCANS // (2 * n))]
+    scan_sets = [near + [k[: int(m)] for k, m in zip(lookups[i][: DIST_SCANS - len(near)],
+                                                       rng.integers(1, 40, DIST_SCANS))]
+                 for i in range(2)]
+    before = dict(_build.LAUNCHES)
+    with first_calls(index_service, "scan_batch") as k6_calls:
+        sync()
+        t = time.time()
+        windows = [dsi.scan_entries(st, WINDOW) for st in scan_sets]
+        scan_s = time.time() - t
+    scan_launches = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    t = time.time()
+    want = [scan_oracle(shard_keys, val_of, max(sidx.sorted_lens), sidx.stacked.rank_iters,
+                        st, WINDOW) for st in scan_sets]
+    bad = sum(g != w for gs, ws in zip(windows, want) for g, w in zip(gs, ws))
+    padded_windows = 0
+    for st, ws in zip(scan_sets, want):
+        for s, w in zip(st, ws):
+            i = bisect.bisect_left(skeys, s)
+            padded_windows += w != [(k, val_of[k]) for k in skeys[i: i + WINDOW]]
+    n_s = sum(len(st) for st in scan_sets)
+    say(f"distributed_scans_per_s={n_s / scan_s:.0f}")
+    say(f"phase distributed: scan_entries of {n_s} starts in 2 batches, window {WINDOW} "
+        f"({len(near)} just below the {n} shard ends): {scan_s:.2f} s = {n_s / scan_s:.0f} "
+        f"scans/s; windows differing from the host's {bad}; of them the reference's padded "
+        f"order changes {padded_windows} ({time.time() - t:.1f} s); launches {scan_launches}")
+    if bad:
+        fail(f"{bad} distributed scan windows differ from the host's")
+
+    # the request plane over a distributed index of tenant-encoded keys (the
+    # service stores every key under its tenant's prefix): YCSB C and puts
+    svc_launches = dict(_build.LAUNCHES)
+    t = time.time()
+    sub = keys[:DIST_SVC_KEYS]
+    sdsi = DistributedStringIndex.build([IndexService.encode_key("url", k) for k in sub],
+                                        values[:DIST_SVC_KEYS], n, config=cfg,
+                                        per_dest_capacity=DIST_CAPACITY)
+    svc_build_s = time.time() - t
+    svc = IndexService(sdsi, ServiceConfig(max_batch=SVC_GROUP, default_tenant="url",
+                                           merge_threshold=None, max_queue=4 * BATCH))
+    try:
+        work = []
+        for c in range(DIST_CLIENTS):
+            ops = ycsb.generate("C", sub[c::DIST_CLIENTS], [], DIST_SVC_GETS, dist="zipf",
+                                seed=SEED * 100 + c)
+            reqs = [GetRequest(o.key) for o in ops]
+            reqs[::64] = [PutRequest(o.key, 1) for o in ops[::64]]
+            work.append([reqs[i: i + SVC_GROUP] for i in range(0, len(reqs), SVC_GROUP)])
+        got, errors = [None] * DIST_CLIENTS, []
+        barrier = threading.Barrier(DIST_CLIENTS + 1, timeout=600)
+
+        def client(c):
+            try:
+                barrier.wait()
+                got[c] = [svc.submit_batch(g, None).result(timeout=600) for g in work[c]]
+            except BaseException as e:  # reported by the main thread
+                errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(DIST_CLIENTS)]
+        for th in threads:
+            th.start()
+        barrier.wait()
+        t = time.perf_counter()
+        for th in threads:
+            th.join(900)
+        svc_s = time.perf_counter() - t
+        if any(th.is_alive() for th in threads) or errors:
+            fail(f"distributed service clients did not finish: {errors[:4]}")
+        st = svc.stats()
+    finally:
+        svc.close()
+    launches = dict(_build.LAUNCHES)
+    svc_launches = {k: v - svc_launches[k] for k, v in launches.items()}
+    differ, n_ops, hist = 0, 0, collections.Counter()
+    for c in range(DIST_CLIENTS):
+        for g, res in zip(work[c], got[c]):
+            direct = sdsi.execute([svc._encode(r, None) for r in g]).results
+            differ += sum((a.status, a.value) != (b.status, b.value) for a, b in zip(res, direct))
+            hist.update(f"{type(r).__name__[:-7].lower()} {a.status.name}"
+                        for r, a in zip(g, res))
+            n_ops += len(g)
+    say(f"phase distributed: IndexService over {len(sub)} tenant-encoded url keys in {n} "
+        f"shards (built in {svc_build_s:.1f} s), {DIST_CLIENTS} clients, {n_ops} ops (YCSB C "
+        f"zipf gets, every 64th a put) in groups of {SVC_GROUP}: {svc_s:.2f} s = "
+        f"{n_ops / svc_s:.0f} ops/s; p50 {st.p50_ms:.1f} ms p99 {st.p99_ms:.1f} ms; coalescing "
+        f"{st.coalescing_factor:.1f}; results differing from a direct execute {differ}; "
+        f"statuses {dict(sorted(hist.items()))}; launches {svc_launches}")
+    if differ or any(k.startswith("put") and k != "put UNSUPPORTED" for k in hist):
+        fail("the service over the distributed index answers differently from execute")
+    for name in ("hpt_locate", "hpt_cdf", "fused_search", "scan"):
+        if launches[name] == 0:
+            fail(f"the distributed path never launched {name}")
+
+    # each kernel against its plain version on the phase's own inputs
+    checks = {}
+    (ti, rq, rl), _ = k4_calls[0]
+    checks["fused_search, one shard's received rows"] = (
+        traverse.fused_search_cuda(ti, rq, rl), traverse.fused_search_plain(ti, rq, rl))
+    (ct2, pt2, qb, ql, start), _ = k2_calls[0]
+    args = (qb, as_rows(ql, qb.shape[0], torch.int32, dev),
+            as_rows(start, qb.shape[0], torch.int32, dev), ct2, pt2, MAX_CDF_STEPS)
+    checks["hpt_cdf, the router's rows"] = ((hpt_cdf.hpt_cdf_cuda(*args),),
+                                            (hpt_cdf.hpt_cdf_plain(*args),))
+    (sti, sqb, sql, swin), _ = k6_calls[0]
+    checks["scan, one shard's starts"] = (scan.fused_scan_cuda(sti, sqb, sql, window=swin),
+                                          scan.fused_scan_plain(sti, sqb, sql, window=swin))
+    for name, (g, w) in checks.items():
+        same = all(torch.equal(a, b) for a, b in zip(g, w))
+        say(f"phase distributed: {name}: kernel == plain on {g[0].shape[0]} rows: {same}")
+        if not same:
+            fail(f"distributed: {name} differs from its plain version")
+    replay = replay_bulk_load(
+        calls, {"hpt_cdf": hpt_cdf.hpt_cdf_cuda, "hpt_locate": hpt_locate.hpt_locate_cuda},
+        {"hpt_cdf": hpt_cdf.hpt_cdf_plain, "hpt_locate": hpt_locate.hpt_locate_plain}, dev)
+    del calls
+    say("phase distributed: the builds' calls replayed: " + "; ".join(
+        f"{name} {r['launches']} launches over {r['rows']} rows, outputs equal to the build's "
+        f"{r['equal_to_build']}, to the plain version {r['equal_to_plain']}"
+        for name, r in replay.items()))
+    for name, r in replay.items():
+        if not (r["equal_to_build"] and r["equal_to_plain"]):
+            fail(f"distributed: the builds' {name} calls replay differently")
+
+    # where one routed get_batch's time goes, and K4/K6 at this path's shapes
+    split = {}
+    with stage_clock(index_service, ("pad_queries", "get_cdf", "_exchange", "base_search",
+                                     "lookup_values"), split):
+        for q in lookups[1:4]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dsi.get_batch(q)
+            split["get_batch"] = split.get("get_batch", 0.0) + (time.perf_counter() - t0) * 1e3
+    split = {k: v / 3 for k, v in split.items()}
+    split["pack, unpack, copies"] = split["get_batch"] - sum(
+        v for k, v in split.items() if k != "get_batch")
+    times = {"fused_search": {"rows": rq.shape[0],
+                              "ms": kernel_ms(lambda: traverse.fused_search_cuda(ti, rq, rl), 50),
+                              "plain_ms": time_cuda(lambda: traverse.fused_search_plain(
+                                  ti, rq, rl), reps=3, warmup=1)},
+             "scan": {"rows": sqb.shape[0],
+                      "ms": kernel_ms(lambda: scan.fused_scan_cuda(sti, sqb, sql, window=swin), 50),
+                      "plain_ms": time_cuda(lambda: scan.fused_scan_plain(
+                          sti, sqb, sql, window=swin), reps=3, warmup=1)}}
+    say(f"phase distributed: get_batch of {BATCH} queries, ms per stage (a sync around each): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + "; " + ", ".join(
+            f"{k} at {v['rows']} rows {v['ms']:.4f} ms (plain {v['plain_ms']:.2f} ms)"
+            for k, v in times.items()))
+
+    # the process-group form on the card: one NCCL rank holds the one shard
+    t = time.time()
+    sub = keys[:DIST_NCCL_KEYS]
+    one = build_sharded(sub, values[:DIST_NCCL_KEYS], 1, device=DEVICE)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        q = lookups[1][:BATCH // 4]
+        qb, ql = (torch.from_numpy(a).to(dev) for a in pad_queries(q, one.width))
+        same = True
+        for cap in (BATCH, DIST_TIGHT):
+            pg = DistributedStringIndex(one, group=dist.group.WORLD, per_dest_capacity=cap,
+                                        config=cfg)
+            here = DistributedStringIndex(one, per_dest_capacity=cap, config=cfg)
+            a, b = pg._fn(qb, ql), here._fn(qb, ql)
+            same &= all(torch.equal(x, y) for x, y in zip(a, b))
+            overflow = int(a[3].sum())
+        same &= (pg.execute([GetRequest(k) for k in q[:DIST_TIGHT]]).results
+                 == here.execute([GetRequest(k) for k in q[:DIST_TIGHT]]).results)
+    finally:
+        dist.destroy_process_group()
+    say(f"phase distributed: one-rank NCCL group over {len(sub)} keys: the process-group form "
+        f"(all_to_all_single on the card) == the in-process form on {len(q)} rows at capacities "
+        f"{BATCH} and {DIST_TIGHT} (dropped {overflow}) and on an execute: {same}; "
+        f"{time.time() - t:.1f} s")
+    if not same or not overflow:
+        fail("the NCCL process-group form differs from the in-process form")
+    numbers = {"lookups_per_s": n_q / get_s, "scans_per_s": n_s / scan_s, "build_s": build_s,
+               "probe_s": probe_s, "shard_s": shard_s, "service_ops_per_s": n_ops / svc_s,
+               "split_ms": split, "times": times, "lost": len(miss_lost),
+               "routing_misses": len(miss_routed), "padded_windows": padded_windows}
+    return launches, numbers
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback address."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def main(parent: bool = False) -> int:
@@ -1534,6 +2003,12 @@ def main(parent: bool = False) -> int:
         svc_index, tenants, fresh, svc_launches, _ = service_phase(keys, absent, values, smi)
         snapshot_phase(svc_index, tenants, fresh, np.random.default_rng(SEED + 5))
         del svc_index, tenants, fresh
+    # 9e. the distributed index: CDF-range shards, routed lookups and scans
+    if parent:
+        say("phase distributed: skipped (--parent: the package predates the distributed index)")
+        dist_launches, dist_numbers = no_launches, None
+    else:
+        dist_launches, dist_numbers = distributed_phase(keys, values, batches, smi, dev)
 
     # 10. one-hot GetCDF path: ops.hpt_cdf(variant="onehot") launches K7, never K2
     qb_np, ql_np = pad_queries(batches[0], W)
@@ -1785,7 +2260,8 @@ def main(parent: bool = False) -> int:
     by_path = {k: {"main": main_launches[k], "write": write_launches[k],
                    "range": range_launches[k] if k in ("rank", "scan") else 0,
                    "merge": sum(m.get(k, 0) for m in merge_launches),
-                   "execute": exec_launches[k], "service": svc_launches[k]} for k in launches}
+                   "execute": exec_launches[k], "service": svc_launches[k],
+                   "distributed": dist_launches[k]} for k in launches}
     rows = []
     for name, (src, replaces) in KERNELS.items():
         args, kern, plain = inputs[name]
@@ -1799,6 +2275,8 @@ def main(parent: bool = False) -> int:
                      "library_ms": None, "launches_by_path": by_path[name]})
         if name in wide:
             rows[-1]["wide_rows"] = wide[name]
+        if dist_numbers is not None and name in dist_numbers["times"]:
+            rows[-1]["distributed"] = dist_numbers["times"][name]
         if name in replay:  # K2/K1 at the bulk load's own launch shapes
             rows[-1]["bulk_load_replay"] = {k: replay[name][k] for k in (
                 "launches", "rows", "median_rows", "ms", "ms_per_launch", "floor_ms",
@@ -1870,5 +2348,6 @@ if __name__ == "__main__":
     ap.add_argument("--parent", action="store_true",
                     help="skip the phases an older package cannot pass: compaction, the "
                          "flush check of the float ops, K7's non-finite tables, the "
-                         "underflow rows, execute, the service, snapshots and wide rows")
+                         "underflow rows, execute, the service, snapshots, wide rows and "
+                         "the distributed index")
     sys.exit(main(ap.parse_args().parent))

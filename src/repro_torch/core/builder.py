@@ -1,10 +1,9 @@
 """Host-side LITS builder: bulkload and dynamic operations (paper Sec. 3.1,
 Alg. 2/3).
 
-A copy of :class:`repro.core.builder.LITSBuilder` (less its float64 host
-models).  The builder owns growable numpy pools (structure of arrays, with
-tagged 32-bit items in place of the paper's tagged 64-bit pointers) and
-implements:
+A copy of :class:`repro.core.builder.LITSBuilder`.  The builder owns
+growable numpy pools (structure of arrays, with tagged 32-bit items in
+place of the paper's tagged 64-bit pointers) and implements:
 
 * bulkload: sample → HPT → recursive top-down build with PMSS decisions,
 * collision-driven model-based nodes (LIPP): no last-mile search,
@@ -28,6 +27,12 @@ in the sorted order until a rebuild walks its subtree.
 A bulk walk copies its keys to the device once and computes each model
 node's slot positions for the whole batch in one call, when the walk first
 reaches that node: K1 runs once per distinct node visited.
+
+A builder given a ``host_model`` (:mod:`repro_torch.core.baselines`: RS,
+SRMI or SM, as Fig. 14 plugs them in) builds no HPT and takes its model
+values and slot positions from that model in float64 on the host, as the
+reference's does: it launches no K1 or K2, and its index is searched with
+:meth:`LITSBuilder.host_search`.
 """
 from __future__ import annotations
 
@@ -140,12 +145,14 @@ class LITSBuilder:
         self,
         config: LITSConfig | None = None,
         hpt: HPT | None = None,
+        host_model=None,
         pmss: pmss_mod.PMSS | None = None,
         rng: np.random.Generator | None = None,
         device="cuda",
     ) -> None:
         self.cfg = config or LITSConfig()
         self.hpt = hpt
+        self.host_model = host_model  # RS/SRMI etc.: float64 host values (Fig. 14)
         self.pmss = pmss if pmss is not None else pmss_mod.PMSS()
         self.rng = rng or np.random.default_rng(0)
         self.device = resolve_device(device)
@@ -194,22 +201,28 @@ class LITSBuilder:
         return self._tables
 
     def _query_rows(self, bytes_mat: np.ndarray, lens: np.ndarray):
-        """(n, width) rows and lengths clipped to the width, on the device."""
+        """(n, width) rows and lengths clipped to the width, on the device;
+        for a host model, the host arrays as they are."""
+        if self.host_model is not None:
+            return bytes_mat, lens
         qb = np.zeros((bytes_mat.shape[0], self.width), np.uint8)
         qb[:, : bytes_mat.shape[1]] = bytes_mat[:, : self.width]
         ql = np.minimum(lens, self.width).astype(np.int32)
         return torch.from_numpy(qb).to(self.device), torch.from_numpy(ql).to(self.device)
 
-    def _values(self, qb: torch.Tensor, ql: torch.Tensor, start: int) -> np.ndarray:
-        """Model values of the device rows ``(qb, ql)`` from character ``start``."""
+    def _values(self, qb, ql, start: int) -> np.ndarray:
+        """Model values of the rows ``(qb, ql)`` from character ``start``."""
+        if self.host_model is not None:
+            return self.host_model.values(StringSet(qb, ql), start)
         cdf_tab, prob_tab = self._dev_tables()
         return get_cdf(cdf_tab, prob_tab, qb, ql, start).cpu().numpy()
 
-    def _positions(
-        self, qb: torch.Tensor, ql: torch.Tensor, start: int,
-        alpha: float, beta: float, m: int,
-    ) -> np.ndarray:
-        """Slot positions of the device rows ``(qb, ql)`` in a node of ``m`` slots."""
+    def _positions(self, qb, ql, start: int, alpha: float, beta: float, m: int) -> np.ndarray:
+        """Slot positions of the rows ``(qb, ql)`` in a node of ``m`` slots."""
+        if self.host_model is not None:
+            v = self.host_model.values(StringSet(qb, ql), start)
+            pos = np.floor(np.float64(alpha) * v + np.float64(beta)).astype(np.int64)
+            return np.clip(pos, 1, m - 2).astype(np.int32)
         cdf_tab, prob_tab = self._dev_tables()
         return positions(cdf_tab, prob_tab, qb, ql, start, alpha, beta, m).cpu().numpy()
 
@@ -229,7 +242,8 @@ class LITSBuilder:
         return int(tab[bp["row"]])
 
     def _bulk_rows(self, keys: Sequence[bytes]) -> None:
-        """Start a bulk walk over ``keys``: their rows go to the device once."""
+        """Start a bulk walk over ``keys``: their rows go to the device once
+        (for a host model, they stay on the host)."""
         W = self.width
         qb = np.zeros((len(keys), W), np.uint8)
         ql = np.zeros(len(keys), np.int32)
@@ -287,7 +301,7 @@ class LITSBuilder:
             raise ValueError(f"width {width} < longest key {maxlen}")
         self.width = max(self.cfg.min_width, width)
         ss = ss.pad_to(self.width)
-        if self.hpt is None:
+        if self.hpt is None and self.host_model is None:
             k = max(min(len(ss), self.cfg.min_sample), int(len(ss) * self.cfg.sample_frac))
             sample_idx = self.rng.choice(len(ss), size=min(k, len(ss)), replace=False)
             self.hpt = build_hpt(
@@ -876,6 +890,17 @@ class LITSBuilder:
         for p in range(m):
             yield from self.iter_subtree(int(self.items.data[base + p]))
 
+    def scan(self, begin: bytes, count: int) -> List[Tuple[bytes, int]]:
+        """Host range scan: first ``count`` entries with key >= begin."""
+        out: List[Tuple[bytes, int]] = []
+        for eid in self.iter_subtree(self.root_item):
+            k = self.key_at(eid)
+            if k >= begin:
+                out.append((k, int(self.ent_val.data[eid])))
+                if len(out) >= count:
+                    break
+        return out
+
     def heights(self) -> dict:
         """Paper Table 3: (base height, trie height) by depth-first walk."""
         base_h, trie_h = self._subtree_heights(self.root_item, 0)
@@ -911,3 +936,23 @@ class LITSBuilder:
                 if it:
                     stack.append((it, bd + 1, td))
         return base_h, trie_h
+
+    def space_bytes(self) -> dict:
+        """Live bytes of each host pool and of the HPT, and their total."""
+        pools = {
+            "keys": self.key_bytes.nbytes_live,
+            "entries": self.ent_off.nbytes_live + self.ent_len.nbytes_live + self.ent_val.nbytes_live,
+            "items": self.items.nbytes_live,
+            "mnodes": sum(
+                g.nbytes_live
+                for g in (self.mn_slot_base, self.mn_slot_cnt, self.mn_prefix_off,
+                          self.mn_prefix_len, self.mn_alpha, self.mn_beta, self.mn_nkeys)
+            ),
+            "cnodes": self.cn_base.nbytes_live + self.cn_cnt.nbytes_live
+            + self.ch_hash.nbytes_live + self.ch_ent.nbytes_live,
+            "tries": self.tr_byte.nbytes_live + self.tr_mask.nbytes_live
+            + self.tr_left.nbytes_live + self.tr_right.nbytes_live,
+            "hpt": self.hpt.nbytes() if self.hpt is not None else 0,
+        }
+        pools["total"] = sum(pools.values())
+        return pools

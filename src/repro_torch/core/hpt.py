@@ -6,7 +6,8 @@ computes a string CDF via the recursion of Eq. (1)/(2) (paper Alg. 1):
     cdf  += prob * HPT[hash(P_k)][c].cdf
     prob *= HPT[hash(P_k)][c].prob
 
-``build_hpt`` and ``uniform_hpt`` are numpy copies of
+``build_hpt``, ``uniform_hpt`` and the float64 analysis oracle
+(``get_cdf_np64``, ``conditional_prob_error``) are numpy copies of
 :mod:`repro.core.hpt`.  ``get_cdf`` and ``positions`` take tensors and
 dispatch on their device: K2 and K1 (``csrc/hpt_cdf.cu``,
 ``csrc/hpt_locate.cu``) for CUDA tensors, the plain versions for CPU ones.
@@ -27,7 +28,7 @@ from .strings import StringSet
 FNV_PRIME = np.uint32(0x01000193)
 
 __all__ = ["HPT", "MAX_CDF_STEPS", "build_hpt", "uniform_hpt", "get_cdf", "positions",
-           "rolling_hash_np"]
+           "rolling_hash_np", "get_cdf_np64", "conditional_prob_error"]
 
 
 @dataclasses.dataclass
@@ -112,3 +113,50 @@ def positions(cdf_tab, prob_tab, qbytes, qlens, start, alpha, beta, nslots,
     """Slot position = clamp(floor(alpha*cdf + beta), 1, nslots-2) (paper Alg. 2 l.35-37)."""
     return hpt_locate(qbytes, qlens, start, alpha, beta, nslots,
                       cdf_tab=cdf_tab, prob_tab=prob_tab, max_steps=max_steps)
+
+
+# ---------------------------------------------------------------------------
+# Numpy float64 oracle (analysis only, not used for the index structure)
+# ---------------------------------------------------------------------------
+
+def get_cdf_np64(hpt: HPT, ss: StringSet, start: int = 0,
+                 max_steps: int = MAX_CDF_STEPS) -> np.ndarray:
+    """GetCDF in float64 on the host (the baselines' and the shard
+    boundaries' model values)."""
+    cdf_tab = hpt.cdf_tab.astype(np.float64)
+    prob_tab = hpt.prob_tab.astype(np.float64)
+    R, C = cdf_tab.shape
+    n, L = ss.bytes.shape
+    cdf = np.zeros(n, np.float64)
+    prob = np.ones(n, np.float64)
+    h = np.zeros(n, np.uint32)
+    mask = np.uint32(R - 1)
+    for k in range(start, min(L, start + max_steps)):
+        active = ss.lens > k
+        if not active.any():
+            break
+        c = np.minimum(ss.bytes[:, k], C - 1).astype(np.int64)
+        r = (h & mask).astype(np.int64)
+        cdf = cdf + np.where(active, prob * cdf_tab[r, c], 0.0)
+        prob = prob * np.where(active, prob_tab[r, c], 1.0)
+        h = np.where(active, rolling_hash_np(h, ss.bytes[:, k]), h)
+    return cdf
+
+
+def conditional_prob_error(hpt: HPT, full: StringSet, prefix: bytes, min_count: int = 1) -> float:
+    """Mean |HPT[hash(P)][c].prob − prob(c|P)| for a given prefix (Thm 3.1 check)."""
+    pl = len(prefix)
+    pb = np.frombuffer(prefix, np.uint8)
+    m = (full.lens > pl) & np.all(full.bytes[:, :pl] == pb[None, :], axis=1)
+    nxt = full.bytes[m, pl]
+    if nxt.size < min_count:
+        return float("nan")
+    emp = np.bincount(nxt, minlength=hpt.cols).astype(np.float64)
+    emp = emp / emp.sum()
+    h = np.zeros(1, np.uint32)
+    for c in pb:
+        h = rolling_hash_np(h, np.array([c], np.uint8))
+    r = int(h[0] & np.uint32(hpt.rows - 1))
+    approx = hpt.prob_tab[r].astype(np.float64)
+    support = emp > 0
+    return float(np.abs(approx[support] - emp[support]).mean())

@@ -73,3 +73,17 @@ class PMSS:
         lit = self.latency("lit", gpkl, n)
         trie = self.latency("trie", gpkl, n)
         return "lit" if lit <= trie else "trie"
+
+
+class AlwaysLIT(PMSS):
+    """Disables subtries — this is the paper's 'LIT' ablation variant."""
+
+    def decide(self, gpkl: float, n: int) -> str:  # noqa: D102
+        return "lit"
+
+
+class AlwaysTrie(PMSS):
+    """Forces the trie everywhere (pure tensor-trie baseline, ART/HOT stand-in)."""
+
+    def decide(self, gpkl: float, n: int) -> str:  # noqa: D102
+        return "trie"

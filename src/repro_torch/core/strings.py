@@ -87,6 +87,17 @@ def sort_order(ss: StringSet) -> np.ndarray:
     return np.argsort(void, kind="stable")
 
 
+
+def is_sorted(ss: StringSet) -> bool:
+    """Rows in non-decreasing memcmp order of their padded bytes, the order
+    :func:`sort_order` sorts them in.  (The reference compares void views
+    with ``<=``, which numpy 2 refuses: ROADMAP Queue 3.)"""
+    a, b = ss.bytes[:-1], ss.bytes[1:]
+    neq = a != b
+    first = neq.argmax(axis=1)
+    rows = np.arange(a.shape[0])
+    return bool(np.all(~neq.any(axis=1) | (a[rows, first] < b[rows, first])))
+
 def dedup_sorted(ss: StringSet) -> np.ndarray:
     """Indices of unique rows within an already sorted StringSet."""
     if len(ss) == 0:

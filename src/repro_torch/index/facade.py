@@ -289,7 +289,7 @@ class StringIndex(StringIndexBase):
         the delta's sizing come from the snapshot.  The host builder is
         rebuilt from the pools at the first merge."""
         cfg = config or IndexConfig()
-        return cls(None, load_index(path, device=resolve_device(cfg.device)), cfg)
+        return cls(None, load_index(path, device=cfg.device), cfg)
 
     @property
     def width(self) -> int:

@@ -29,6 +29,7 @@ import torch
 from repro_torch.core.tensor_index import (
     DATA_FIELDS, STATIC_FIELDS, TensorIndex, delta_sort_order, tensor_index_from_arrays,
 )
+from repro_torch.kernels._build import resolve_device
 
 SNAPSHOT_MAGIC = "lits-snapshot"
 # v2 adds the delta tombstones (de_tomb), v3 the compaction epoch, v4 the
@@ -71,9 +72,11 @@ def save_index(ti: TensorIndex, path: str) -> None:
         np.savez_compressed(f, **{_META_KEY: meta}, **arrays)
 
 
-def load_index(path: str, device="cpu") -> TensorIndex:
+def load_index(path: str, device="cuda") -> TensorIndex:
     """Read a snapshot written by :func:`save_index` or by the reference's,
-    checking its magic and version, onto ``device``."""
+    checking its magic and version, onto ``device`` (default the card; pass
+    ``device="cpu"`` for the CPU)."""
+    device = resolve_device(device)
     with np.load(path, allow_pickle=False) as z:
         if _META_KEY not in z.files:
             raise SnapshotFormatError(f"{path}: not a LITS snapshot (missing {_META_KEY} header)")

@@ -676,3 +676,88 @@ def test_cuda_snapshot_loads_on_cpu(cuda, tmp_path):
         for a, b in zip(want, other.scan_batch(starts, 16)):
             assert torch.equal(a, b.cpu())
     assert ix.scan(b"", 40) == cpu.scan(b"", 40) == card.scan(b"", 40)
+
+
+def _sharded_pair(n_shards):
+    """A sharded url index built on the card and on the CPU, the keys and
+    values; 2,999 keys leave the shards unequal, so their orders are padded."""
+    from repro_torch.distributed import build_sharded
+
+    keys = synthetic.load("url", 2999, seed=8)
+    vals = np.random.default_rng(8).integers(-(1 << 62), 1 << 62, len(keys))
+    return (build_sharded(keys, vals, n_shards, device="cuda"),
+            build_sharded(keys, vals, n_shards, device="cpu"), keys, vals)
+
+
+def test_cuda_distributed_matches_cpu(cuda):
+    """``build_sharded`` on the card (K2/K1) gives the CPU's stacked pools;
+    the in-process routed lookup (router K2, each owner's K4) and
+    ``scan_entries`` (K6 per shard, padded orders replayed) answer as on the
+    CPU, at a capacity that holds every row and at one that overflows."""
+    from repro_torch.distributed import DistributedStringIndex, make_service_fn
+    from repro_torch.index import IndexConfig
+
+    card, cpu, keys, vals = _sharded_pair(4)
+    np.testing.assert_array_equal(card.boundaries, cpu.boundaries)
+    assert card.sorted_lens == cpu.sorted_lens and len(set(cpu.sorted_lens)) > 1
+    for f in DATA_FIELDS:
+        assert torch.equal(getattr(card.stacked, f).cpu(), getattr(cpu.stacked, f)), f
+    rng = np.random.default_rng(9)
+    q = [keys[i] for i in rng.integers(0, len(keys), 3000)] + [k + b"/" for k in keys[:500]]
+    q += [b"", b"h" * (card.width + 2), keys[0][:5], keys[-1] + b"~"] * 25
+    qb, ql = pad_queries(q, card.width)
+    for cap in (len(q), 150):
+        before = dict(_build.LAUNCHES)
+        got = make_service_fn(card, cap)(*_dev(cuda, qb, ql))
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["hpt_cdf"] == before["hpt_cdf"] + 1
+        assert _build.LAUNCHES["fused_search"] == before["fused_search"] + 4
+        want = make_service_fn(cpu, cap)(*_dev("cpu", qb, ql))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    on_card = DistributedStringIndex(card, per_dest_capacity=len(q),
+                                     config=IndexConfig(device="cuda"))
+    on_cpu = DistributedStringIndex(cpu, per_dest_capacity=len(q),
+                                    config=IndexConfig(device="cpu"))
+    for a, b in zip(on_card.get_batch(q), on_cpu.get_batch(q)):
+        np.testing.assert_array_equal(a, b)
+    ends = np.cumsum(cpu.sorted_lens)
+    starts = [keys[min(e + d, len(keys) - 1)] for e in ends for d in (-9, -4, -1, 0)]
+    starts += [k[:12] for k in q[:1500]] + [keys[-1] + b"~"]
+    before = _build.LAUNCHES["scan"]
+    got = on_card.scan_entries(starts, 16)
+    assert _build.LAUNCHES["scan"] > before
+    assert got == on_cpu.scan_entries(starts, 16)
+
+
+def test_cuda_nccl_one_rank_matches_in_process(cuda):
+    """The process-group form over NCCL with one rank (one card holds one
+    rank): its exchanges run on the card and give the in-process answers."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import DistributedStringIndex
+    from repro_torch.index import GetRequest, IndexConfig
+
+    card, _cpu, keys, _vals = _sharded_pair(1)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        cfg = IndexConfig(device="cuda")
+        rng = np.random.default_rng(10)
+        q = [keys[i] for i in rng.integers(0, len(keys), 2000)] + [b"absent", b""]
+        for cap in (4096, 500):
+            pg = DistributedStringIndex(card, group=dist.group.WORLD, per_dest_capacity=cap,
+                                        config=cfg)
+            here = DistributedStringIndex(card, per_dest_capacity=cap, config=cfg)
+            qb, ql = _dev(cuda, *pad_queries(q, card.width))
+            for a, b in zip(pg._fn(qb, ql), here._fn(qb, ql)):
+                assert torch.equal(a, b)
+        assert pg.execute([GetRequest(k) for k in q[:100]]).results == \
+            here.execute([GetRequest(k) for k in q[:100]]).results
+    finally:
+        dist.destroy_process_group()

@@ -1,10 +1,9 @@
 """The port's ``IndexService`` against the JAX package, on the CPU: the cases
-of tests/test_index_service.py (but for the distributed backend, which the
-port does not have yet) and the two service cases of
-tests/test_compaction.py, on the port.  Where a case compares the service
-with a direct ``execute``, the port's service is also held to the
-reference's service on the same single-flush op sequence, result for
-result.  Every wait has a timeout and every service is closed by the
+of tests/test_index_service.py (the distributed backend's included) and
+the two service cases of tests/test_compaction.py, on the port.  Where a
+case compares the service with a direct ``execute``, the port's service is
+also held to the reference's service (or index) on the same ops, result
+for result.  Every wait has a timeout and every service is closed by the
 ``services`` fixture, so a hung thread fails its test.
 """
 import dataclasses
@@ -420,3 +419,48 @@ def test_commit_pause_excludes_merge_work(rng, services):
     assert s.merge_wall_ms > 0 and s.merge_pause_ms >= 0
     assert s.merge_pause_ms < s.merge_wall_ms / 2, (s.merge_pause_ms, s.merge_wall_ms)
 
+
+
+def test_service_over_distributed_backend(rng, services):
+    """The same request plane fronts the distributed read-only index:
+    coalesced gets are bit-identical to direct ``execute``, and to the
+    reference's distributed index; mutations come back UNSUPPORTED as data
+    (facade contract riding through the service)."""
+    import jax
+
+    from repro.distributed.index_service import DistributedStringIndex as RDistributed
+    from repro_torch.distributed import DistributedStringIndex
+
+    keys, vals = _corpus(rng, 400)
+    enc = [IndexService.encode_key("t", k) for k in keys]
+    dsi = DistributedStringIndex.build(enc, vals, n_shards=1, config=_cfg())
+    ref = RDistributed.build(enc, vals, n_shards=1, mesh=jax.make_mesh((1,), ("data",)))
+    svc = _started(services, IndexService(dsi, ServiceConfig(
+        max_batch=64, default_tenant="t", merge_threshold=None)))
+    n_clients = 8
+    results = {}
+    barrier = threading.Barrier(n_clients, timeout=WAIT_S)
+
+    def run(i):
+        ops = ([GetRequest(k) for k in keys[i::n_clients][:20]]
+               + [GetRequest(b"miss-%d" % i), PutRequest(b"x-%d" % i, 1),
+                  DeleteRequest(b"y-%d" % i)])
+        barrier.wait()
+        results[i] = (ops, svc.execute(ops, timeout=WAIT_S))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(WAIT_S)
+    assert not any(t.is_alive() for t in threads) and len(results) == n_clients
+    for i in range(n_clients):
+        ops, got = results[i]
+        enc_ops = [svc._encode(r, None) for r in ops]
+        want = dsi.execute(enc_ops).results
+        for g, w, r in zip(got, want, ref.execute([_to_ref(o) for o in enc_ops]).results):
+            assert g.status == w.status and g.value == w.value
+            _same(w, r)
+        assert got[-2].status == Status.UNSUPPORTED   # put on the read-only shards
+        assert got[-1].status == Status.UNSUPPORTED   # delete likewise
+    assert svc.stats().coalescing_factor > 1.0

@@ -24,7 +24,7 @@ from repro_torch.index import (
     DeleteRequest, GetRequest, IndexConfig, PutRequest, SnapshotFormatError,
     SnapshotVersionError, Status, StringIndex,
 )
-from repro_torch.index.snapshot import SNAPSHOT_VERSION
+from repro_torch.index.snapshot import SNAPSHOT_VERSION, load_index
 
 
 def _corpus(rng, n=300):
@@ -262,3 +262,20 @@ def test_snapshot_loads_across_packages(rng, tmp_path, saver):
     ri2.merge()
     ti2.merge()
     _same_answers(ri2, ti2, probe + [b"after"])
+
+
+def test_load_index_defaults_to_the_card(rng, tmp_path, monkeypatch):
+    """``load_index`` and ``StringIndex.load`` load onto the card unless
+    asked for the CPU: without one they raise the no-card error, never
+    loading onto the CPU quietly."""
+    keys, vals = _corpus(rng, 60)
+    path = str(tmp_path / "default.snap")
+    StringIndex.bulk_load(keys, vals, _cpu()).save(path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        load_index(path)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        StringIndex.load(path)
+    ti = load_index(path, device="cpu")
+    assert ti.device == torch.device("cpu")
+    _same_fields(RIndex.load(path, RConfig(auto_merge_threshold=None)).ti, ti)
