@@ -45,7 +45,17 @@ size on one 1,000,000-key synthetic URL index:
   clients, and the process-group form with one NCCL rank; every answer
   against the host's reckoning, which counts the reference's lost keys,
   routing misses (no ε recheck at the boundaries) and padded-order scan
-  windows.
+  windows;
+* the LM serving path at the full width of deepseek-7b (30 layers, d_model
+  4096, float32 weights from a generator seeded 0): ``ServeEngine`` serves 8
+  request batches of 4 prompts of 48 tokens, 32 generated tokens each, with
+  its prefix cache's index on the card (K4 walks every lookup, admission
+  and LRU eviction); the cache's counts against a host replay, cached
+  batches' tokens against their first serve, prefill and decode against
+  ``forward``, layer 0 and the head against the port on the CPU, every
+  reduced arch on the card against the CPU port, the index's slots
+  against the cache's host dict, and every K4 call of the traffic against
+  the plain walk.
 
 Every GetCDF (K2) and locate (K1) call of a second bulk load of the same
 keys (so that the recorder stays out of the timed one) is recorded and
@@ -66,7 +76,7 @@ before/after run): the phases that package cannot pass are skipped, each
 with a line that says so: the compaction phase, the check that the
 GetCDF/locate kernels' float ops all flush subnormals, the K7 phase with
 non-finite tables, the kernel-versus-plain checks on the underflow rows,
-and the execute, service, snapshot, wide-row and distributed phases.
+and the execute, service, snapshot, wide-row, distributed and lm phases.
 Without it every phase runs.
 
 Output: one line per phase, then a JSON line of per-kernel numbers, then
@@ -125,6 +135,16 @@ DIST_SVC_KEYS = 100_000     # ... url keys, tenant-encoded, of the service's sha
 DIST_CLIENTS = 8            # ... service client threads
 DIST_SVC_GETS = 2_048       # ... YCSB C (zipf) gets a client, in groups of SVC_GROUP
 DIST_NCCL_KEYS = 100_000    # ... keys of the one-rank NCCL check
+LM_ARCH = "deepseek-7b"     # phase lm: the arch served at its published width
+LM_REDUCED = False          # ... True only to rehearse the phase on the CPU
+LM_REQUESTS = 8             # ... request batches
+LM_BATCH = 4                # ... prompts a batch
+LM_PROMPT = 48              # ... tokens a prompt (a key of 197 bytes: cached)
+LM_GEN = 32                 # ... generated tokens a prompt
+LM_REPEAT = 0.5             # ... share of repeated batches (launch/serve.py's draw)
+LM_CAPACITY = 12            # ... prefix-cache slots (16 prompts drawn: the LRU evicts
+                            #     through DELETE)
+LM_MAX_LEN = 512            # ... the engine's KV window bound
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
@@ -1326,14 +1346,16 @@ def snapshot_phase(index, tenants, fresh, rng):
 
 
 @contextlib.contextmanager
-def first_calls(owner, name, n: int = 1):
-    """The arguments of the first ``n`` calls of ``owner.name`` inside the block."""
+def recorded_calls(owner, name, n=None):
+    """The arguments and the output of the first ``n`` calls (all, where
+    ``n`` is None) of ``owner.name`` inside the block, from any thread."""
     calls, fn = [], getattr(owner, name)
 
     def call(*args, **kwargs):
-        if len(calls) < n:
-            calls.append((args, kwargs))
-        return fn(*args, **kwargs)
+        out = fn(*args, **kwargs)
+        if n is None or len(calls) < n:
+            calls.append((args, out))
+        return out
 
     setattr(owner, name, call)
     try:
@@ -1497,8 +1519,8 @@ def distributed_phase(keys, values, batches, smi, dev):
     # lookups: the main phase's batches, routed
     val_of = dict(zip(keys, values.tolist()))
     lookups = batches[:DIST_BATCHES]
-    with first_calls(index_service, "base_search") as k4_calls, \
-            first_calls(index_service, "get_cdf") as k2_calls:
+    with recorded_calls(index_service, "base_search", 1) as k4_calls, \
+            recorded_calls(index_service, "get_cdf", 1) as k2_calls:
         sync()
         t = time.time()
         answers = [dsi.get_batch(q) for q in lookups]
@@ -1579,7 +1601,7 @@ def distributed_phase(keys, values, batches, smi, dev):
                                                        rng.integers(1, 40, DIST_SCANS))]
                  for i in range(2)]
     before = dict(_build.LAUNCHES)
-    with first_calls(index_service, "scan_batch") as k6_calls:
+    with recorded_calls(index_service, "scan_batch", 1) as k6_calls:
         sync()
         t = time.time()
         windows = [dsi.scan_entries(st, WINDOW) for st in scan_sets]
@@ -1753,6 +1775,340 @@ def distributed_phase(keys, values, batches, smi, dev):
                "probe_s": probe_s, "shard_s": shard_s, "service_ops_per_s": n_ops / svc_s,
                "split_ms": split, "times": times, "lost": len(miss_lost),
                "routing_misses": len(miss_routed), "padded_windows": padded_windows}
+    return launches, numbers
+
+
+def lru_replay(plan_keys, capacity: int):
+    """The prefix cache's counts for a request plan, replayed on the host by
+    the reference's rule: hits refresh recency in key order; a batch with a
+    miss admits its misses after evicting the least recently used past
+    ``capacity``.  Returns (hits, misses, inserts, evictions, the keys held
+    at the end, per batch whether it was served from the cache)."""
+    lru = collections.OrderedDict()
+    hits = misses = inserts = evictions = 0
+    from_cache = []
+    for keys in plan_keys:
+        hit = [k in lru for k in keys]
+        for k, h in zip(keys, hit):
+            if h:
+                lru.move_to_end(k)
+        hits += sum(hit)
+        misses += len(keys) - sum(hit)
+        from_cache.append(all(hit))
+        if not all(hit):
+            new = list(dict.fromkeys(k for k, h in zip(keys, hit) if not h))
+            for _ in range(min(max(len(lru) + len(new) - capacity, 0), len(lru))):
+                lru.popitem(last=False)
+                evictions += 1
+            for k in new:
+                lru[k] = True
+                inserts += 1
+    return hits, misses, inserts, evictions, set(lru), from_cache
+
+
+def lm_plan(vocab: int):
+    """``launch/serve.py``'s request draw: a base batch first, then per
+    request a repeat of it (probability LM_REPEAT, never the first) or a
+    fresh batch, from ``np.random.default_rng(0)``.  Returns the batches and
+    each one's id (``-1``: the base)."""
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, vocab, size=(LM_BATCH, LM_PROMPT)).astype(np.int32)
+    plan = []
+    for r in range(LM_REQUESTS):
+        if rng.random() < LM_REPEAT and r > 0:
+            plan.append((-1, base))
+        else:
+            plan.append((r, rng.integers(0, vocab, size=(LM_BATCH, LM_PROMPT)).astype(np.int32)))
+    return plan
+
+
+def lm_close(name: str, got, want, tol: float) -> float:
+    """Fail unless ``got`` (on any device) is within rtol = atol = ``tol`` of
+    ``want``; returns the largest absolute difference."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
+        fail(f"phase lm: {name}: a non-finite value")
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        fail(f"phase lm: {name}: max |diff| {err:.4g} outside rtol = atol = {tol}")
+    return err
+
+
+def lm_reduced_archs(dev) -> dict:
+    """Check (e): every reduced arch on the card against the port on the CPU
+    with the same weights (``tests/_torch_cases.py``'s ``lm_card_vs_cpu``:
+    prefill and two decode steps; hubert, encoder-only: its forward).
+    Returns each arch's largest logit difference."""
+    from repro_torch.configs.registry import ARCHS
+
+    from _torch_cases import LM_CARD_TOL, lm_card_vs_cpu
+
+    def errs(name):
+        return lm_card_vs_cpu(name, dev, lambda what, got, want: lm_close(
+            f"{name} {what}", got, want, LM_CARD_TOL))
+
+    return {name: max(errs(name)) for name in ARCHS}
+
+
+def lm_phase(smi, dev):
+    """Phase lm: the LM serving path at the full width of LM_ARCH on the card
+    (``LMModel`` from a generator seeded 0, ``ServeEngine`` with its prefix
+    cache's index on the card), then checks (a)-(g):
+
+    (a) the cache's hits, misses, inserts and evictions equal a host replay
+        of the request plan, and every batch served from the cache generates
+        its first serve's tokens, bit for bit;
+    (b) at full width, ``prefill``'s last logits equal ``forward``'s within
+        rtol = atol = 2e-2, and the first ``decode_step``'s equal
+        ``forward``'s on S+1 tokens within 6e-2 over the first 2 layers (the
+        reference's test's depth) and within LM_DEPTH_TOL over all 30;
+    (c) layer 0 and the head at full width on one prompt row, the card
+        against the port on the CPU with the same weights, within LM_CARD_TOL;
+    (d) no non-finite logit anywhere;
+    (e) every reduced arch on the card against the CPU port (``lm_reduced_archs``);
+    (f) every slot the cache's index returns equals the cache's host dict;
+    (g) every K4 call the served traffic made (the cache's lookups and the
+        base walks of its admissions and evictions) equals the plain
+        version's on the same rows and index, on every output.
+
+    Returns the index kernels' launches during the served traffic and the
+    phase's numbers."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import tensor_index
+    from repro_torch.kernels import _build, traverse
+    from repro_torch.models import LMModel
+    from repro_torch.serve import ServeEngine
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_cases import LM_CARD_TOL, LM_DEPTH_TOL
+
+    t_phase = time.time()
+    cfg = get_arch(LM_ARCH)
+    if LM_REDUCED:
+        cfg = cfg.reduced()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = LMModel(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    sync()
+    init_s = time.time() - t
+    weight_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    peak = (lambda: torch.cuda.max_memory_allocated() / 1e9) if DEVICE == "cuda" else (lambda: 0.0)
+    say(f"phase lm: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}): "
+        f"{model.cfg.param_count()} float32 parameters = {weight_gb:.2f} GB, initialised on "
+        f"{dev} in {init_s:.1f} s; max_memory_allocated {peak():.2f} GB")
+
+    # (d) every logit the engine sees is finite: a device flag, read once
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def finite_checked(fn):
+        def call(*args, **kw):
+            cache, logits = fn(*args, **kw)
+            bad.logical_or_(~torch.isfinite(logits).all())
+            return cache, logits
+        return call
+
+    model.prefill = finite_checked(model.prefill)
+    model.decode_step = finite_checked(model.decode_step)
+
+    # the served traffic; launch counts around it
+    plan = lm_plan(cfg.vocab)
+    eng = ServeEngine(model, cache_capacity=LM_CAPACITY, max_len=LM_MAX_LEN)
+    try:
+        need = LM_PROMPT + LM_GEN + 1
+        plan_keys = [[ServeEngine._prompt_key(p[i], need) for i in range(LM_BATCH)]
+                     for _, p in plan]
+        _build.reset_launches()
+        sync()
+        first_out, walls = {}, []
+        t = time.time()
+        with recorded_calls(tensor_index, "fused_search") as k4_calls:
+            for (bid, prompts), keys in zip(plan, plan_keys):
+                cached_before = eng.stats.cached_prefills
+                sync()
+                t0 = time.perf_counter()
+                out = eng.generate(prompts, n_steps=LM_GEN)["generated"]
+                sync()
+                walls.append(((time.perf_counter() - t0) * 1e3,
+                              eng.stats.cached_prefills > cached_before))
+                if bid in first_out:
+                    if not walls[-1][1]:
+                        fail(f"phase lm: batch {bid} served again but not from the cache")
+                    if not np.array_equal(out, first_out[bid]):
+                        fail(f"phase lm: batch {bid} from the cache generated other tokens")
+                else:
+                    first_out[bid] = out
+        serve_s = time.time() - t
+        launches = dict(_build.LAUNCHES)
+        pc, svc = eng.prefix_cache.stats, eng.prefix_cache.service.stats()
+        counts = (pc.hits, pc.misses, pc.inserts, pc.evictions)
+        # (a) the cache's counts and the served-from-cache batches
+        want = lru_replay(plan_keys, LM_CAPACITY)
+        if counts != want[:4] or [c for _, c in walls] != want[5]:
+            fail(f"phase lm: cache counts (hits, misses, inserts, evictions) {counts}, "
+                 f"batches from the cache {[c for _, c in walls]}; the host replay gives "
+                 f"{want[:4]}, {want[5]}")
+        if launches["fused_search"] == 0:
+            fail("phase lm: the served traffic never launched fused_search")
+        # (f) every key's slot in the index equals the cache's host dict; the
+        #     keys the replay evicted miss
+        distinct = list(dict.fromkeys(k for keys in plan_keys for k in keys))
+        with recorded_calls(tensor_index, "fused_search") as k4_lookup:
+            hit, slots = eng.prefix_cache.lookup(distinct)
+        held = want[4]
+        for k, h, s in zip(distinct, hit.tolist(), slots.tolist()):
+            if h != (k in held) or (h and (s != eng.prefix_cache._key_slot[k]
+                                           or eng.prefix_cache.get_state(s) is None)):
+                fail(f"phase lm: the index answers ({h}, {s}) for a key the host holds "
+                     f"{k in held}, slot {eng.prefix_cache._key_slot.get(k)}")
+        # (g) K4 at the path's own shapes: every call of the served traffic
+        #     and the lookup of (f), against the plain version on the same
+        #     rows and the same index (a write or a merge makes a new
+        #     TensorIndex, so each recorded one is the index its call walked)
+        k4_err = 0.0
+        for (ti, qb, ql), got in k4_calls + k4_lookup:
+            plain = traverse.fused_search_plain(ti, qb, ql)
+            if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+                fail(f"phase lm: fused_search differs from its plain version on a call of "
+                     f"{qb.shape[0]} rows of width {qb.shape[1]}")
+            k4_err = max(k4_err, max_abs_err(got, plain))
+        k4_rows = [qb.shape[0] for (_, qb, _), _ in k4_calls]
+        if sum(n > 0 for n in k4_rows) != launches["fused_search"]:
+            fail(f"phase lm: {len(k4_calls)} fused_search calls recorded against "
+                 f"{launches['fused_search']} launches")
+        cached_ms = [w for w, c in walls if c]
+        uncached_ms = [w for w, c in walls if not c]
+        n_tok = LM_REQUESTS * LM_BATCH * LM_GEN
+        say(f"phase lm: {LM_REQUESTS} request batches of {LM_BATCH} prompts x {LM_PROMPT} "
+            f"tokens + {LM_GEN} generated (keys of {len(plan_keys[0][0])} bytes) in "
+            f"{serve_s:.2f} s = {n_tok / serve_s:.1f} generated tokens/s ({smi}); wall ms a "
+            f"batch: from the cache {[round(w, 1) for w in cached_ms]}, prefilled "
+            f"{[round(w, 1) for w in uncached_ms]}; prefills {eng.stats.prefills} "
+            f"cached_prefills {eng.stats.cached_prefills} decode_steps "
+            f"{eng.stats.decode_steps}")
+        hit_rate = counts[0] / (counts[0] + counts[1])
+        say(f"phase lm: prefix cache hit_rate {hit_rate:.3f} hits {counts[0]} misses "
+            f"{counts[1]} inserts {counts[2]} evictions {counts[3]} merges {pc.merges} "
+            f"(host replay {want[:4]}: equal); {len(distinct)} distinct prompts, slots equal "
+            f"to the host dict; service p50 {svc.p50_ms:.2f} ms p99 {svc.p99_ms:.2f} ms, "
+            f"flushes {svc.flushes}; index kernel launches {launches}")
+        say(f"phase lm: (g) fused_search == plain on every output of the served traffic's "
+            f"{len(k4_calls)} calls (rows a call {k4_rows}, width {k4_calls[0][0][1].shape[1]}) "
+            f"and the {len(k4_lookup)} of (f)'s lookup of {len(distinct)} keys: max_abs_err "
+            f"{k4_err}")
+    finally:
+        eng.prefix_cache.close()
+    del model.prefill, model.decode_step
+
+    # timings at the served shapes: prefill of a batch, one decode step
+    prompts = torch.from_numpy(plan[0][1]).to(dev)
+    prefill_ms = time_cuda(lambda: model.prefill({"tokens": prompts}, max_len=need), reps=5)
+    cache, logits = model.prefill({"tokens": prompts}, max_len=need)
+    tok = torch.argmax(logits[:, : cfg.vocab], -1).to(torch.int32)
+    decode_ms = time_cuda(lambda: model.decode_step(cache, tok, LM_PROMPT), reps=10)
+    say(f"phase lm: prefill of {LM_BATCH} x {LM_PROMPT} tokens {prefill_ms:.2f} ms; decode "
+        f"step of {LM_BATCH} rows {decode_ms:.2f} ms = {LM_BATCH / decode_ms * 1e3:.1f} "
+        f"tokens/s; max_memory_allocated {peak():.2f} GB ({smi})")
+
+    # where a decode step's time goes: one step under the profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
+    sync()
+    with profile(activities=acts) as prof:
+        model.decode_step(cache, tok, LM_PROMPT)
+        sync()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:   # kernel names are C++ templates: their heads and functors
+        head = re.sub(r"^void |<.*$|\(.*$", "", e.name).replace("at::native::", "")[:40]
+        functor = re.search(r"(\w+)_kernel_cuda", e.name)
+        slot = by_name[head + (f"[{functor.group(1)}]" if functor else "")]
+        slot[0] += e.time_range.elapsed_us() / 1e3
+        slot[1] += 1
+    dev_ms = sum(ms for ms, _ in by_name.values())
+    say(f"phase lm: one profiled decode step: {dev_ms:.2f} ms of kernel time against the "
+        f"{decode_ms:.2f} ms step (idle share {max(0.0, 1 - dev_ms / decode_ms):.2f}), "
+        f"{len(kernels)} kernel launches; by kernel: " + ", ".join(
+            f"{k} {ms:.2f} ms x{n}" for k, (ms, n) in sorted(
+                by_name.items(), key=lambda kv: -kv[1][0])[:8]))
+
+    # (b) prefill and decode against forward, at full width: prefill to the
+    #     reference's 2e-2; decode to its 6e-2 at its test's depth (the first
+    #     2 layers of the full-width model) and to LM_DEPTH_TOL through all
+    #     layers, where bf16 rounding differences between the one-token and
+    #     the whole-sequence products grow with depth
+    def decode_vs_forward(n_layers, tol):
+        model.cfg = dc.replace(cfg, n_layers=n_layers)
+        try:
+            with torch.no_grad():
+                c, last_ = model.prefill({"tokens": prompts}, max_len=need)
+                nxt_ = torch.argmax(last_[:, : cfg.vocab], -1).to(torch.int32)
+                _, dec_ = model.decode_step(c, nxt_, LM_PROMPT)
+                fwd = model.forward({"tokens": torch.cat([prompts, nxt_[:, None]], 1)})[:, -1]
+                name = f"decode_step vs forward, {n_layers} layers"
+                return lm_close(name, dec_, fwd, tol), float((dec_ - fwd).abs().mean())
+        finally:
+            model.cfg = cfg
+
+    with torch.no_grad():
+        full = model.forward({"tokens": prompts})
+        _, last = model.prefill({"tokens": prompts}, max_len=need)
+        err_prefill = lm_close("prefill vs forward", last, full[:, -1], 2e-2)
+        del full
+    err_decode2 = decode_vs_forward(2, 6e-2)
+    err_decode = decode_vs_forward(cfg.n_layers, LM_DEPTH_TOL)
+    # (c) layer 0 and the head on one prompt row: the card against the CPU port
+    one = dc.replace(cfg, n_layers=1)
+    cpu1 = LMModel(one, device="cpu", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in cpu1.top.items():
+            p.copy_(model.top[name])
+        for name, p in cpu1.blocks.items():
+            p.copy_(model.blocks[name][:1])
+        row = {"tokens": prompts[:1]}
+        x, pos, _ = model._embed_inputs(row)
+        x1, _ = model._block(model.layer(0), x, pos)
+        card_logits = model._head(x1)
+        xc, posc, _ = cpu1._embed_inputs({"tokens": prompts[:1].cpu()})
+        xc1, _ = cpu1._block(cpu1.layer(0), xc, posc)
+        err_layer0 = lm_close("layer 0, card vs cpu", x1, xc1, LM_CARD_TOL)
+        err_head = lm_close("layer 0 + head, card vs cpu", card_logits, cpu1._head(xc1),
+                            LM_CARD_TOL)
+    del cpu1
+    if bool(bad):   # (d)
+        fail("phase lm: a non-finite logit on the served path")
+    peak_gb = peak()
+    del model, eng, prompts, cache, logits, tok, last, x, x1, card_logits
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    say(f"phase lm: checks (b) prefill vs forward max |diff| {err_prefill:.4g} (tol 2e-2); "
+        f"decode_step vs forward max / mean |diff| {err_decode2[0]:.4g} / {err_decode2[1]:.4g} "
+        f"at 2 layers (tol 6e-2), {err_decode[0]:.4g} / {err_decode[1]:.4g} at "
+        f"{cfg.n_layers} (tol {LM_DEPTH_TOL}); (c) card vs cpu on one row: "
+        f"layer 0 {err_layer0:.4g}, logits {err_head:.4g} (tol {LM_CARD_TOL}); (d) all logits "
+        "finite")
+    t = time.time()
+    reduced_errs = lm_reduced_archs(dev)
+    say(f"phase lm: (e) reduced archs, card vs cpu, max |logit diff| (tol {LM_CARD_TOL}): "
+        + ", ".join(f"{k} {v:.4g}" for k, v in reduced_errs.items())
+        + f" in {time.time() - t:.1f} s; phase {time.time() - t_phase:.1f} s")
+    numbers = {"arch": cfg.name, "weight_gb": weight_gb, "peak_gb": peak_gb,
+               "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+               "profiled_decode_step_device_ms": dev_ms,
+               "decode_vs_forward": {"2_layers": err_decode2, "all_layers": err_decode},
+               "decode_tokens_per_s": LM_BATCH / decode_ms * 1e3,
+               "served_tokens_per_s": n_tok / serve_s, "cached_batch_ms": cached_ms,
+               "prefilled_batch_ms": uncached_ms, "hit_rate": hit_rate,
+               "inserts": counts[2], "evictions": counts[3], "merges": pc.merges,
+               "k4_calls_checked": len(k4_calls) + len(k4_lookup), "k4_rows": k4_rows,
+               "k4_max_abs_err": k4_err,
+               "service_p50_ms": svc.p50_ms, "service_p99_ms": svc.p99_ms,
+               "reduced_arch_max_err": reduced_errs}
     return launches, numbers
 
 
@@ -2333,6 +2689,15 @@ def main(parent: bool = False) -> int:
         stage("to_host", lambda: (f.cpu().numpy(), lo.cpu().numpy(), hi.cpu().numpy()))
     say("phase split: get_batch of %d queries, ms per stage: %s" % (
         len(q), ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
+
+    # 16. the LM serving path at full width, last: it frees its model
+    if parent:
+        say("phase lm: skipped (--parent: the package predates the LM serving path)")
+    else:
+        lm_launches, lm_numbers = lm_phase(smi, dev)
+        for r in rows:
+            r["launches_by_path"]["lm"] = lm_launches[r["name"]]
+        next(r for r in rows if r["name"] == "fused_search")["lm"] = lm_numbers
     say(f"phase done in {time.time() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2348,6 +2713,6 @@ if __name__ == "__main__":
     ap.add_argument("--parent", action="store_true",
                     help="skip the phases an older package cannot pass: compaction, the "
                          "flush check of the float ops, K7's non-finite tables, the "
-                         "underflow rows, execute, the service, snapshots, wide rows and "
-                         "the distributed index")
+                         "underflow rows, execute, the service, snapshots, wide rows, "
+                         "the distributed index and the LM serving path")
     sys.exit(main(ap.parse_args().parent))

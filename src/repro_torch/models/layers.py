@@ -1,0 +1,309 @@
+"""Transformer building blocks, forward only: norms, RoPE, chunked
+(flash-style) attention, decode attention, MLP variants and the
+sorted-grouped-GEMM MoE without a mesh.  The port of
+:mod:`repro.models.layers`.
+
+Activations flow in bf16 with float32 softmax and norm statistics, as in the
+reference.  Where the reference asks its products for a float32 result
+(``preferred_element_type=jnp.float32``: attention scores and the PV
+product), the operands are bf16 values upcast to float32 and multiplied in
+float32: a product of two bf16 values is exact in float32, so the result is
+the reference's up to summation order.  The other products stay in bf16,
+as the reference's do.  Attention is plain torch that follows the
+reference's algorithm step for step (never ``scaled_dot_product_attention``),
+so that its arithmetic can be traced against it.
+
+Not here yet: the flash attention's custom backward (the training slice)
+and the expert-parallel MoE over a mesh (with ``distributed/sharding``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+ACT_DTYPE = torch.bfloat16
+NEG_INF = -1e30     # the reference's mask value
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-vector int8 quantization over the last (head) dim: (q, scale)."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s.to(torch.bfloat16)
+
+
+def dequantize_kv(q: torch.Tensor, s: torch.Tensor, dtype=ACT_DTYPE) -> torch.Tensor:
+    return (q.float() * s.float()[..., None]).to(dtype)
+
+
+def cast_tree(p: dict, dtype=ACT_DTYPE) -> dict:
+    """Cast float params to the activation dtype (compute-dtype cast)."""
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in p.items()}
+
+
+def sub_params(p: dict, prefix: str) -> dict:
+    """The entries ``prefix.name`` of a layer's parameters, keyed ``name``."""
+    return {k.split(".", 1)[1]: v for k, v in p.items() if k.startswith(prefix + ".")}
+
+
+def _f32_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` with a float32 result, as ``preferred_element_type=float32``."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (full / partial a.k.a. chatglm "2d")
+# ---------------------------------------------------------------------------
+
+def _rope_angles(positions: torch.Tensor, dim: int, base: float = 10000.0) -> torch.Tensor:
+    half = dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = torch.pow(torch.tensor(base, dtype=torch.float32, device=positions.device), exps)
+    return positions.float()[..., None] * freqs  # (..., half)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, variant: str = "full") -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) or (S,). variant partial rotates hd/2."""
+    if variant == "none":
+        return x
+    B, S, H, hd = x.shape
+    rot_dim = hd if variant == "full" else hd // 2
+    if positions.dim() == 1:
+        positions = positions[None, :].expand(B, S)
+    ang = _rope_angles(positions, rot_dim)  # (B, S, rot_dim/2)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    xr = x[..., :rot_dim]
+    x1, x2 = xr[..., : rot_dim // 2], xr[..., rot_dim // 2:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if rot_dim == hd:
+        return rotated
+    return torch.cat([rotated, x[..., rot_dim:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# chunked (flash-style) attention — bounded memory at 32k+ sequence lengths
+# ---------------------------------------------------------------------------
+
+def _chunk_sizes(S: int, T: int, q_chunk: int, kv_chunk: int):
+    Qc = min(q_chunk, S)
+    while S % Qc:
+        Qc //= 2
+    Kc = min(kv_chunk, T)
+    while T % Kc:
+        Kc //= 2
+    return Qc, Kc
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool, window: int) -> torch.Tensor:
+    m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=qpos.device)
+    if causal:
+        m &= qpos[:, None] >= kpos[None, :]
+    if window:
+        m &= qpos[:, None] - kpos[None, :] < window
+    return m
+
+
+def _flash_fwd_impl(qg, kk, vv, causal: bool, window: int, q_offset: int, Qc: int, Kc: int):
+    """qg: (B,KV,g,S,hd); kk/vv: (B,KV,T,hd) -> (out, lse) with out like qg.
+
+    The reference's two nested scans as two loops: an online softmax over
+    the key chunks of each query chunk."""
+    B, KV, g, S, hd = qg.shape
+    T = kk.shape[2]
+    nq, nk = S // Qc, T // Kc
+    scale = 1.0 / math.sqrt(hd)
+    dev = qg.device
+    q_pos0 = torch.arange(Qc, dtype=torch.int32, device=dev)
+    k_pos0 = torch.arange(Kc, dtype=torch.int32, device=dev)
+    outs, lses = [], []
+    for qi in range(nq):
+        qc = qg[:, :, :, qi * Qc:(qi + 1) * Qc]
+        qpos = q_pos0 + qi * Qc + q_offset
+        acc = torch.zeros((B, KV, g, Qc, hd), dtype=torch.float32, device=dev)
+        m = torch.full((B, KV, g, Qc), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, KV, g, Qc), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            kc = kk[:, :, ki * Kc:(ki + 1) * Kc]
+            vc = vv[:, :, ki * Kc:(ki + 1) * Kc]
+            s = _f32_product("bkgqh,bkth->bkgqt", qc, kc) * scale
+            msk = _mask(qpos, k_pos0 + ki * Kc, causal, window)
+            s = torch.where(msk[None, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = _f32_product("bkgqt,bkth->bkgqh", p.to(vc.dtype), vc)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        lsafe = torch.clamp(l, min=1e-30)
+        outs.append((acc / lsafe[..., None]).to(qg.dtype))
+        lses.append(m + torch.log(lsafe))
+    return torch.cat(outs, dim=3), torch.cat(lses, dim=3)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, hd)
+    k: torch.Tensor,  # (B, T, KV, hd)
+    v: torch.Tensor,  # (B, T, KV, hd)
+    *,
+    causal: bool = True,
+    window: int = 0,          # 0 = full; else sliding-window attention
+    q_offset: int = 0,        # absolute position of q[0] (prefill continuation)
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention with (Qc × Kc) tiles; GQA via head grouping.
+    Forward only: the (B, H, S, T) score matrix is never materialized, the
+    peak extra memory is O(B·H·Qc·Kc) per step."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    Qc, Kc = _chunk_sizes(S, T, q_chunk, kv_chunk)
+    qg = q.reshape(B, S, KV, g, hd).permute(0, 2, 3, 1, 4)
+    kk = k.permute(0, 2, 1, 3)
+    vv = v.permute(0, 2, 1, 3)
+    out, _ = _flash_fwd_impl(qg, kk, vv, causal, window, q_offset, Qc, Kc)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, H, hd) single new token
+    k_cache: torch.Tensor,  # (B, W, KV, hd) (ring buffer when window)
+    v_cache: torch.Tensor,
+    pos: int,               # absolute position of the new token
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    B, W, KV, hd = k_cache.shape
+    H = q.shape[1]
+    g = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, g, hd)
+    s = _f32_product("bkgh,bwkh->bkgw", qg, k_cache) * scale
+    slot = torch.arange(W, dtype=torch.int64, device=q.device)
+    if window:
+        # slot w holds absolute position p = pos - ((pos - w) mod W), valid if p >= 0
+        p = pos - torch.remainder(pos - slot, W)
+        valid = (p >= 0) & (p <= pos)
+    else:
+        valid = slot <= pos
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = _f32_product("bkgw,bwkh->bkgh", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def _act(a: torch.Tensor, act: str, dtype) -> torch.Tensor:
+    """The MLP's nonlinearity on the first projection ``a`` (swiglu's gate)."""
+    if act == "sq_relu":
+        r = torch.clamp(a, min=0)
+        return r * r
+    if act == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        return F.gelu(a.float(), approximate="tanh").to(dtype)
+    return F.silu(a.float()).to(dtype)
+
+
+def mlp_apply(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
+    a = torch.einsum("bsd,df->bsf", x, p["wi0"])
+    h = _act(a, act, x.dtype)
+    if act == "swiglu":
+        h = h * torch.einsum("bsd,df->bsf", x, p["wi1"])
+    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing + sort-based grouped GEMM (capacity-dropped)
+# ---------------------------------------------------------------------------
+
+def _moe_expert_compute(xe, p_wi0, p_wi1, p_wo, act, dtype):
+    a = torch.einsum("ecd,edf->ecf", xe, p_wi0)
+    if act == "swiglu":
+        h = _act(a, act, dtype) * torch.einsum("ecd,edf->ecf", xe, p_wi1)
+    else:
+        r = torch.clamp(a, min=0)
+        h = r * r
+    return torch.einsum("ecf,efd->ecd", h, p_wo)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest along the last dim, the lower index first
+    on ties (a stable descending sort)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _moe_dispatch_compute(xt, logits, e0: int, E_loc: int, p_wi0, p_wi1, p_wo, *,
+                          top_k: int, capacity_factor: float, act: str):
+    """Route xt (T,d) to the E_loc local experts [e0, e0+E_loc); returns (T,d)
+    partial outputs (zeros for tokens whose experts live elsewhere)."""
+    T, d = xt.shape
+    E = logits.shape[1]
+    dev = xt.device
+    gates = torch.softmax(logits, dim=-1)
+    topv, topi = _top_k(gates, top_k)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    eid = topi.reshape(-1)
+    wgt = topv.reshape(-1)
+    tok = torch.arange(T, dtype=torch.int64, device=dev).repeat_interleave(top_k)
+    C = max(int(capacity_factor * T * top_k / E), 4)
+    local = (eid >= e0) & (eid < e0 + E_loc)
+    le = torch.where(local, eid - e0, torch.full_like(eid, E_loc))  # E_loc = drop bucket
+    order = torch.sort(le, stable=True).indices
+    so, ts, ws = le[order], tok[order], wgt[order]
+    first = torch.searchsorted(so, so, side="left")
+    pos = torch.arange(T * top_k, dtype=torch.int64, device=dev) - first
+    keep = (so < E_loc) & (pos < C)
+    # gather-only dispatch: (E_loc, C) source-token ids, then one local gather;
+    # the reference's out-of-range writes (mode="drop") are exactly ~keep
+    ids = torch.zeros((E_loc, C), dtype=torch.int64, device=dev)
+    valid = torch.zeros((E_loc, C), dtype=torch.bool, device=dev)
+    ids[so[keep], pos[keep]] = ts[keep]
+    valid[so[keep], pos[keep]] = True
+    xe = xt[ids] * valid[..., None].to(xt.dtype)
+    ye = _moe_expert_compute(xe, p_wi0, p_wi1, p_wo, act, xt.dtype)
+    # the reference's gather clamps out-of-range indices; those rows are
+    # multiplied by keep = 0
+    back = ye[so.clamp(max=E_loc - 1), pos.clamp(max=C - 1)] \
+        * (ws * keep)[:, None].to(xt.dtype)
+    return torch.zeros((T, d), dtype=xt.dtype, device=dev).index_add_(0, ts, back)
+
+
+def moe_apply(
+    x: torch.Tensor,     # (B, S, d)
+    p: dict,             # router (d,E), wi0/wi1 (E,d,f), wo (E,f,d)
+    *,
+    top_k: int,
+    capacity_factor: float,
+    act: str,
+) -> torch.Tensor:
+    """Top-k MoE: one local dispatch over all experts (the reference's path
+    without a mesh)."""
+    B, S, d = x.shape
+    E = p["router"].shape[1]
+    wi1 = p.get("wi1", p["wi0"])  # unused when act != swiglu
+    xt = x.reshape(B * S, d)
+    logits = torch.einsum("td,de->te", xt, p["router"]).float()
+    out = _moe_dispatch_compute(
+        xt, logits, 0, E, p["wi0"], wi1, p["wo"],
+        top_k=top_k, capacity_factor=capacity_factor, act=act)
+    return out.reshape(B, S, d)

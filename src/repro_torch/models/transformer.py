@@ -1,0 +1,385 @@
+"""LM model assembly for all assigned architecture families: the port of
+:mod:`repro.models.transformer`, as an ``nn.Module``.
+
+One code path covers: dense GQA (llama-style / squared-ReLU / partial-RoPE /
+SWA), MoE (top-k, optional parallel dense residual — arctic), mamba-1 SSM
+(attention-free), hybrid parallel attn+mamba (hymba), encoder-only backbones
+(hubert) and VLM backbones with stub patch frontends (internvl2).
+
+The parameters keep the reference's table and layout: float32, the layer
+parameters stacked on a leading ``L`` dim under the reference's names
+(``blocks["attn.wq"]`` is the ``(L, d, H·hd)`` tensor; the module stores it
+as ``blocks["attn__wq"]``, since a module name cannot hold a dot), cast to
+bf16 one layer at a time as they are used.  The decode cache keeps the
+reference's stacked layout and dtypes: ``k``/``v`` ``(L, B, S, KV, hd)`` in
+bf16, or int8 with bf16 ``k_scale``/``v_scale``; ``ssm`` float32 and
+``conv`` bf16.  ``decode_step`` writes the new token's state into that cache
+in place (the reference's ``dynamic_update_slice`` under buffer donation),
+so a caller that keeps a per-row state across steps keeps a copy.
+
+Forward only: ``forward(remat=...)`` accepts the flag, and activation
+checkpointing, ``loss`` and the mesh (``param_specs``, ``constrain``) come
+with the training and multi-card slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._build import resolve_device
+
+from .layers import (
+    ACT_DTYPE,
+    apply_rope,
+    cast_tree,
+    decode_attention,
+    dequantize_kv,
+    flash_attention,
+    mlp_apply,
+    moe_apply,
+    quantize_kv,
+    rms_norm,
+    sub_params,
+)
+from .ssm import mamba_decode_step, mamba_forward
+
+DECODE_CAPACITY_FACTOR = 4.0   # the reference's MoE capacity in decode_step
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    init: str = "normal"  # normal | zeros | a_log | dt_bias | ones
+
+
+def _key(name: str) -> str:
+    """The module's name for the reference's parameter ``name``."""
+    return name.replace(".", "__")
+
+
+class LMModel(nn.Module):
+    """The model, its parameters on ``device`` (``cuda`` unless the caller
+    asks for ``cpu``), initialised from ``generator`` (a generator on that
+    device, seeded 0 when none is given)."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        dev = resolve_device(device)
+
+        def empty(shape):
+            return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=dev))
+
+        self.top = nn.ParameterDict({n: empty(pd.shape) for n, pd in self.top_defs().items()})
+        self.blocks = nn.ParameterDict({
+            _key(n): empty((cfg.n_layers,) + pd.shape) for n, pd in self.layer_defs().items()})
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(0)
+        self.init(generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.top["embed"].device
+
+    # ------------------------------------------------------------------
+    # parameter table
+    # ------------------------------------------------------------------
+    def layer_defs(self) -> Dict[str, ParamDef]:
+        c = self.cfg
+        d, f = c.d_model, c.d_ff
+        defs: Dict[str, ParamDef] = {"ln1": ParamDef((d,), "zeros")}
+        if c.has_attn:
+            H, KV, hd = c.n_heads_padded, c.n_kv_padded, c.hd
+            defs["attn.wq"] = ParamDef((d, H * hd))
+            defs["attn.wk"] = ParamDef((d, KV * hd))
+            defs["attn.wv"] = ParamDef((d, KV * hd))
+            defs["attn.wo"] = ParamDef((H * hd, d))
+        if c.has_mamba:
+            di, N, dtr = c.d_inner, c.ssm_state, c.dt_rank
+            defs["mamba.in_proj"] = ParamDef((d, 2 * di))
+            defs["mamba.conv_w"] = ParamDef((c.ssm_conv, di))
+            defs["mamba.conv_b"] = ParamDef((di,), "zeros")
+            defs["mamba.x_proj"] = ParamDef((di, dtr + 2 * N))
+            defs["mamba.dt_proj"] = ParamDef((dtr, di))
+            defs["mamba.dt_bias"] = ParamDef((di,), "dt_bias")
+            defs["mamba.A_log"] = ParamDef((di, N), "a_log")
+            defs["mamba.D"] = ParamDef((di,), "ones")
+            defs["mamba.out_proj"] = ParamDef((di, d))
+        if c.has_moe:
+            E = c.n_experts
+            defs["ln2"] = ParamDef((d,), "zeros")
+            defs["moe.router"] = ParamDef((d, E))
+            defs["moe.wi0"] = ParamDef((E, d, f))
+            if c.mlp_act == "swiglu":
+                defs["moe.wi1"] = ParamDef((E, d, f))
+            defs["moe.wo"] = ParamDef((E, f, d))
+            if c.moe_dense_ff:
+                fd = c.moe_dense_ff
+                defs["dense.wi0"] = ParamDef((d, fd))
+                if c.mlp_act == "swiglu":
+                    defs["dense.wi1"] = ParamDef((d, fd))
+                defs["dense.wo"] = ParamDef((fd, d))
+        elif f:
+            defs["ln2"] = ParamDef((d,), "zeros")
+            defs["mlp.wi0"] = ParamDef((d, f))
+            if c.mlp_act == "swiglu":
+                defs["mlp.wi1"] = ParamDef((d, f))
+            defs["mlp.wo"] = ParamDef((f, d))
+        if c.family == "hybrid":
+            defs["fuse_a"] = ParamDef((d,), "zeros")
+            defs["fuse_m"] = ParamDef((d,), "zeros")
+        return defs
+
+    def top_defs(self) -> Dict[str, ParamDef]:
+        c = self.cfg
+        d = c.d_model
+        defs = {
+            "embed": ParamDef((c.vocab_padded, d)),
+            "final_ln": ParamDef((d,), "zeros"),
+            "lm_head": ParamDef((d, c.vocab_padded)),
+        }
+        if c.frontend != "none":
+            defs["frontend_proj"] = ParamDef((c.frontend_dim, d))
+        return defs
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """Every parameter under the reference's name: the top ones and the
+        stacked layer ones (``blocks.<name>``)."""
+        out = dict(self.top.items())
+        out.update({"blocks." + n: self.blocks[_key(n)] for n in self.layer_defs()})
+        return out
+
+    def layer(self, l: int) -> Dict[str, torch.Tensor]:
+        """Layer ``l``'s parameters under the reference's names (views)."""
+        return {n: self.blocks[_key(n)][l] for n in self.layer_defs()}
+
+    # ------------------------------------------------------------------
+    # init
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "LMModel":
+        """The reference's initialisers, drawn in its order (top parameters,
+        then the layers'): normal·1/√fan_in, zeros, ones, dt_bias -4, and
+        a_log log(1..N)."""
+        defs = list(self.top_defs().items()) + list(self.layer_defs().items())
+        for name, pd in defs:
+            p = self.top[name] if name in self.top else self.blocks[_key(name)]
+            if pd.init == "zeros":
+                p.zero_()
+            elif pd.init == "ones":
+                p.fill_(1.0)
+            elif pd.init == "dt_bias":
+                p.fill_(-4.0)
+            elif pd.init == "a_log":
+                N = pd.shape[-1]
+                p.copy_(torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                               device=p.device)).expand(p.shape))
+            else:
+                fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
+                p.normal_(generator=generator).mul_(1.0 / math.sqrt(max(fan_in, 1)))
+        return self
+
+    # ------------------------------------------------------------------
+    # blocks
+    # ------------------------------------------------------------------
+    def _attn_train(self, p, h, positions, return_kv: bool = False):
+        c = self.cfg
+        B, S, d = h.shape
+        H, KV, hd = c.n_heads_padded, c.n_kv_padded, c.hd
+        q = torch.einsum("bsd,de->bse", h, p["attn.wq"]).reshape(B, S, H, hd)
+        k = torch.einsum("bsd,de->bse", h, p["attn.wk"]).reshape(B, S, KV, hd)
+        v = torch.einsum("bsd,de->bse", h, p["attn.wv"]).reshape(B, S, KV, hd)
+        q = apply_rope(q, positions, c.rope_variant)
+        k = apply_rope(k, positions, c.rope_variant)
+        o = flash_attention(q, k, v, causal=c.causal, window=c.swa_window)
+        out = torch.einsum("bse,ed->bsd", o.reshape(B, S, H * hd), p["attn.wo"])
+        if not return_kv:
+            return out
+        if c.swa_window:
+            W = c.swa_window
+            if S > W:
+                # ring-buffer layout: slot j must hold absolute position
+                # p ≡ j (mod W); roll the trailing window accordingly.
+                shift = (S - W) % W
+                k = torch.roll(k[:, -W:], shift, dims=1)
+                v = torch.roll(v[:, -W:], shift, dims=1)
+            elif S < W:
+                k = F.pad(k, (0, 0, 0, 0, 0, W - S))
+                v = F.pad(v, (0, 0, 0, 0, 0, W - S))
+        return out, (k.to(ACT_DTYPE), v.to(ACT_DTYPE))
+
+    def _ffn(self, p, x, capacity_factor: float):
+        """The block's second half: x + MLP or MoE (+ arctic's dense residual)."""
+        c = self.cfg
+        if c.has_moe:
+            h2 = rms_norm(x, p["ln2"], c.norm_eps)
+            y = moe_apply(h2, sub_params(p, "moe"), top_k=c.top_k,
+                          capacity_factor=capacity_factor, act=c.mlp_act)
+            if c.moe_dense_ff:
+                y = y + mlp_apply(h2, sub_params(p, "dense"), c.mlp_act)
+            return x + y
+        if c.d_ff:
+            h2 = rms_norm(x, p["ln2"], c.norm_eps)
+            return x + mlp_apply(h2, sub_params(p, "mlp"), c.mlp_act)
+        return x
+
+    def _gates(self, p, dtype):
+        ga = torch.sigmoid(p["fuse_a"].float()).to(dtype)
+        gm = torch.sigmoid(p["fuse_m"].float()).to(dtype)
+        return ga, gm
+
+    def _block(self, p, x, positions, keep_state: bool = False):
+        """One layer over the whole sequence: (x, the decode state it leaves)
+        where ``keep_state`` (prefill), else (x, None)."""
+        c = self.cfg
+        p = cast_tree(p)
+        h = rms_norm(x, p["ln1"], c.norm_eps)
+        state = {}
+        if c.has_attn:
+            a = self._attn_train(p, h, positions, return_kv=keep_state)
+            if keep_state:
+                a, (state["k"], state["v"]) = a
+        if c.has_mamba:
+            m = mamba_forward(h, sub_params(p, "mamba"), c, return_state=keep_state)
+            if keep_state:
+                m, state["ssm"], conv = m
+                state["conv"] = conv.to(ACT_DTYPE)
+        if c.family == "hybrid":
+            ga, gm = self._gates(p, x.dtype)
+            mix = a * ga + m * gm
+        else:
+            mix = a if c.has_attn else m
+        x = self._ffn(p, x + mix, c.capacity_factor)
+        return x, (state if keep_state else None)
+
+    # ------------------------------------------------------------------
+    # embedding / head
+    # ------------------------------------------------------------------
+    def _embed_inputs(self, batch) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """Returns (x (B,S,d) bf16, positions (B,S), n_prefix_tokens)."""
+        c = self.cfg
+        if c.frontend == "frame":
+            x = torch.einsum("bsf,fd->bsd", batch["frames"].to(ACT_DTYPE),
+                             self.top["frontend_proj"].to(ACT_DTYPE))
+            B, S = x.shape[:2]
+            pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+            return x, pos, 0
+        emb = self.top["embed"][batch["tokens"].long()].to(ACT_DTYPE)
+        n_prefix = 0
+        if c.frontend == "patch" and "patches" in batch:
+            pe = torch.einsum("bpf,fd->bpd", batch["patches"].to(ACT_DTYPE),
+                              self.top["frontend_proj"].to(ACT_DTYPE))
+            emb = torch.cat([pe, emb], dim=1)
+            n_prefix = pe.shape[1]
+        B, S = emb.shape[:2]
+        pos = torch.arange(S, dtype=torch.int32, device=emb.device)[None].expand(B, S)
+        return emb, pos, n_prefix
+
+    def _head(self, x) -> torch.Tensor:
+        """float32 logits: bf16 activations against the bf16-cast head,
+        multiplied in float32 (the reference's ``preferred_element_type``)."""
+        x = rms_norm(x, self.top["final_ln"], self.cfg.norm_eps)
+        return torch.einsum("bsd,dv->bsv", x.float(),
+                            self.top["lm_head"].to(x.dtype).float())
+
+    # ------------------------------------------------------------------
+    # forward / prefill / decode
+    # ------------------------------------------------------------------
+    def forward(self, batch, remat: bool = True) -> torch.Tensor:
+        """Logits (B, S, vocab_padded) float32.  ``remat`` is accepted for the
+        reference's signature; activation checkpointing comes with training."""
+        x, positions, n_prefix = self._embed_inputs(batch)
+        for l in range(self.cfg.n_layers):
+            x, _ = self._block(self.layer(l), x, positions)
+        logits = self._head(x)
+        if n_prefix:
+            logits = logits[:, n_prefix:]
+        return logits
+
+    @torch.no_grad()
+    def prefill(self, batch, max_len: Optional[int] = None) -> Tuple[dict, torch.Tensor]:
+        """Forward returning the decode cache + last-position logits.
+
+        ``max_len`` pre-allocates KV headroom for subsequent decode steps
+        (full-attention caches append at slot ``pos``; SWA caches are fixed
+        window-sized ring buffers and never grow).
+        """
+        c = self.cfg
+        x, positions, _ = self._embed_inputs(batch)
+        states = []
+        for l in range(c.n_layers):
+            x, st = self._block(self.layer(l), x, positions, keep_state=True)
+            states.append(st)
+        logits = self._head(x[:, -1:, :])[:, 0]
+        cache = {}
+        if c.has_attn:
+            kc = torch.stack([s["k"] for s in states])
+            vc = torch.stack([s["v"] for s in states])
+            if max_len is not None and not c.swa_window and max_len > kc.shape[2]:
+                grow = (0, 0, 0, 0, 0, max_len - kc.shape[2])
+                kc, vc = F.pad(kc, grow), F.pad(vc, grow)
+            if c.kv_cache_dtype == "int8":
+                kc, cache["k_scale"] = quantize_kv(kc)
+                vc, cache["v_scale"] = quantize_kv(vc)
+            cache["k"], cache["v"] = kc, vc
+        if c.has_mamba:
+            cache["ssm"] = torch.stack([s["ssm"] for s in states])
+            cache["conv"] = torch.stack([s["conv"] for s in states])
+        return cache, logits
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, token: torch.Tensor, pos: int):
+        """One decode step against a pre-filled cache. token: (B,), pos: the
+        new token's absolute position.  Writes the token's state into
+        ``cache`` in place and returns (cache, logits (B, vocab_padded))."""
+        c = self.cfg
+        pos = int(pos)
+        x = self.top["embed"][token.long()].to(ACT_DTYPE)  # (B, d)
+        B = x.shape[0]
+        H, KV, hd = c.n_heads_padded, c.n_kv_padded, c.hd
+        int8kv = c.kv_cache_dtype == "int8"
+        for l in range(c.n_layers):
+            p = cast_tree(self.layer(l))
+            h = rms_norm(x, p["ln1"], c.norm_eps)
+            mix = torch.zeros_like(x)
+            if c.has_attn:
+                kc, vc = cache["k"][l], cache["v"][l]       # views: (B, W, KV, hd)
+                W = kc.shape[1]
+                q = (h @ p["attn.wq"]).reshape(B, H, hd)
+                kn = (h @ p["attn.wk"]).reshape(B, KV, hd)
+                vn = (h @ p["attn.wv"]).reshape(B, KV, hd)
+                posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+                q = apply_rope(q[:, None], posb, c.rope_variant)[:, 0]
+                kn = apply_rope(kn[:, None], posb, c.rope_variant)[:, 0]
+                slot = pos % W if c.swa_window else pos
+                if int8kv:
+                    ksc, vsc = cache["k_scale"][l], cache["v_scale"][l]
+                    kc[:, slot], ksc[:, slot] = quantize_kv(kn)
+                    vc[:, slot], vsc[:, slot] = quantize_kv(vn)
+                    o = decode_attention(q, dequantize_kv(kc, ksc), dequantize_kv(vc, vsc),
+                                         pos, window=c.swa_window)
+                else:
+                    kc[:, slot] = kn.to(kc.dtype)
+                    vc[:, slot] = vn.to(vc.dtype)
+                    o = decode_attention(q, kc, vc, pos, window=c.swa_window)
+                mix = o.reshape(B, H * hd) @ p["attn.wo"]
+            if c.has_mamba:
+                m, hs, cs = mamba_decode_step(h, sub_params(p, "mamba"), c, cache["ssm"][l],
+                                              cache["conv"][l].to(ACT_DTYPE))
+                cache["ssm"][l] = hs
+                cache["conv"][l] = cs.to(cache["conv"].dtype)
+                if c.family == "hybrid":
+                    ga, gm = self._gates(p, x.dtype)
+                    mix = mix * ga + m * gm
+                else:
+                    mix = m
+            x = self._ffn(p, (x + mix)[:, None], DECODE_CAPACITY_FACTOR)[:, 0]
+        logits = self._head(x[:, None, :])[:, 0]
+        return cache, logits

@@ -1,5 +1,7 @@
-"""The port's request plane: :class:`IndexService` (the LM serving scaffold
-of :mod:`repro.serve` is not ported yet)."""
+"""Serving substrate: the prefill/decode engine, the LITS prompt-prefix cache
+and the :class:`IndexService` async multi-tenant request plane."""
+from .engine import ServeEngine, ServeStats
+from .prefix_cache import PrefixCache, PrefixCacheStats
 from .service import (
     IndexService,
     OpFuture,
@@ -9,5 +11,5 @@ from .service import (
     TENANT_SEP,
 )
 
-__all__ = ["IndexService", "OpFuture", "ServiceConfig", "ServiceStats",
-           "ScanPage", "TENANT_SEP"]
+__all__ = ["IndexService", "OpFuture", "PrefixCache", "PrefixCacheStats", "ServeEngine",
+           "ServeStats", "ServiceConfig", "ServiceStats", "ScanPage", "TENANT_SEP"]

@@ -469,3 +469,58 @@ def trimmed(ti):
     n_key = ti.key_bytes.shape[0] - (ti.width + 1)
     return dataclasses.replace(ti, key_bytes=ti.key_bytes[:n_key],
                                db_bytes=ti.db_bytes[: max(int(ti.db_used), 1)])
+
+
+# a reduced arch on the card against the CPU port: cuBLAS's bf16 products
+# round in another order
+LM_CARD_TOL = 6e-2
+# the first decode step's logits against forward's on S+1 tokens through 30
+# layers: the reference's 6e-2 (its test's, at 2 layers) grown as the
+# reference's own gap grows from 2 to 30 layers (x2.2 at the reduced width,
+# test_torch_lm_model.py's test_decode_vs_forward_gap_grows_with_depth_as_in_reference),
+# rounded down
+LM_DEPTH_TOL = 0.1
+
+
+def lm_pair(arch: str, dev):
+    """A reduced arch's port model on the CPU and the same weights on ``dev``."""
+    import torch
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import LMModel
+
+    cfg = ARCHS[arch].reduced()
+    cpu = LMModel(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = LMModel(cfg, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+def lm_card_vs_cpu(arch: str, dev, close, seed: int = 3) -> list:
+    """The reduced ``arch`` on ``dev`` against the port on the CPU with the
+    same weights: prefill and two decode steps, both fed the CPU's greedy
+    tokens (an encoder-only arch: its forward), on 2 rows of 12 positions
+    from ``default_rng(seed)``.  ``close(what, got, want)`` compares each
+    pair of logits (``got`` on ``dev``, ``want`` on the CPU); its results in
+    order."""
+    import torch
+
+    cfg, cpu, card = lm_pair(arch, dev)
+    rng = np.random.default_rng(seed)
+    B, S = 2, 12
+    if not cfg.decoder:
+        fr = torch.from_numpy(rng.standard_normal((B, S, cfg.frontend_dim)).astype(
+            np.float32)).to(torch.bfloat16)
+        with torch.no_grad():
+            return [close("forward", card.forward({"frames": fr.to(dev)}),
+                          cpu.forward({"frames": fr}))]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+    cc, cl = cpu.prefill({"tokens": toks}, max_len=S + 4)
+    gc, gl = card.prefill({"tokens": toks.to(dev)}, max_len=S + 4)
+    out = [close("prefill", gl, cl)]
+    for step in range(2):
+        tok = torch.argmax(cl[:, : cfg.vocab], -1).to(torch.int32)
+        cc, cl = cpu.decode_step(cc, tok, S + step)
+        gc, gl = card.decode_step(gc, tok.to(dev), S + step)
+        out.append(close(f"decode step {step}", gl, cl))
+    return out

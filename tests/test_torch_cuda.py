@@ -3,8 +3,10 @@
 Every test here needs an NVIDIA GPU and ``nvcc``; without a card each skips
 with its reason.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.  Equality
-is exact throughout: a kernel that is off by one float32 ulp places a key
-in another slot.
+is exact for the index: a kernel that is off by one float32 ulp places a key
+in another slot.  The LM cases at the end hold the model's logits on the
+card to the port on the CPU within a stated tolerance (cuBLAS sums its bf16
+products in another order), and the served tokens exactly.
 """
 import bisect
 import dataclasses
@@ -13,11 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, WORD_BATCHES, WORD_WINDOW,
-                          edge_cdf_rows, nan_equal, nonfinite_tables, query_rows,
-                          saturation_cases, short_orders, tie_cases, tie_table, trimmed,
-                          underflow_keys, underflow_table, wide_edge_case, word_edge_case,
-                          word_edge_indexes, word_rows)
+from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, LM_CARD_TOL, WORD_BATCHES,
+                          WORD_WINDOW, edge_cdf_rows, lm_card_vs_cpu, lm_pair, nan_equal,
+                          nonfinite_tables, query_rows, saturation_cases, short_orders,
+                          tie_cases, tie_table, trimmed, underflow_keys, underflow_table,
+                          wide_edge_case, word_edge_case, word_edge_indexes, word_rows)
 from repro_torch.core.strings import StringSet
 from repro_torch.core.builder import LITSBuilder, LITSConfig
 from repro_torch.core.tensor_index import DATA_FIELDS, freeze, pad_queries
@@ -761,3 +763,65 @@ def test_cuda_nccl_one_rank_matches_in_process(cuda):
             here.execute([GetRequest(k) for k in q[:100]]).results
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: each reduced arch and the engine on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "chatglm3-6b", "deepseek-7b",
+                                  "falcon-mamba-7b", "h2o-danube-3-4b", "hubert-xlarge",
+                                  "hymba-1.5b", "internvl2-76b", "llama4-scout-17b-a16e",
+                                  "nemotron-4-15b"])
+def test_cuda_reduced_arch_matches_cpu(cuda, arch):
+    """Prefill and two decode steps (hubert, encoder-only: its forward) on the
+    card against the port on the CPU with the same weights, within ``LM_CARD_TOL``
+    (MoE routing can differ on a near-tie, so the MoE archs are held on their
+    logits, not on their tokens)."""
+    def close(what, got, want):
+        assert torch.isfinite(got).all(), what
+        torch.testing.assert_close(got.cpu(), want, rtol=LM_CARD_TOL, atol=LM_CARD_TOL)
+
+    lm_card_vs_cpu(arch, cuda, close)
+
+
+def test_cuda_engine_serves_a_repeated_batch_from_the_cache(cuda):
+    """The engine on the card: the second serve of a batch is a cache hit (K4
+    walks the prompt keys) and generates the same tokens, bit for bit."""
+    from repro_torch.serve import ServeEngine
+
+    cfg, _cpu, card = lm_pair("falcon-mamba-7b", cuda)
+    eng = ServeEngine(card, cache_capacity=8, max_len=64)
+    try:
+        prompts = np.random.default_rng(4).integers(0, cfg.vocab, (3, 16)).astype(np.int32)
+        before = _build.LAUNCHES["fused_search"]
+        first = eng.generate(prompts, n_steps=8)["generated"]
+        again = eng.generate(prompts, n_steps=8)["generated"]
+        assert _build.LAUNCHES["fused_search"] > before
+        assert eng.stats.prefills == 3 and eng.stats.cached_prefills == 3
+        assert np.array_equal(first, again)
+    finally:
+        eng.prefix_cache.close()
+
+
+def test_cuda_engine_stored_state_is_unchanged_by_decoding(cuda):
+    """The states the engine stores are copies: after the batch's decode steps
+    each still equals a fresh prefill of its prompt, bit for bit."""
+    from repro_torch.serve import ServeEngine
+
+    cfg, _cpu, card = lm_pair("hymba-1.5b", cuda)
+    eng = ServeEngine(card, cache_capacity=8, max_len=64)
+    try:
+        prompts = np.random.default_rng(5).integers(0, cfg.vocab, (2, 10)).astype(np.int32)
+        eng.generate(prompts, n_steps=12)
+        cache, logits = card.prefill({"tokens": torch.from_numpy(prompts).to(cuda)}, max_len=23)
+        keys = [ServeEngine._prompt_key(prompts[i], 23) for i in range(2)]
+        hit, slots = eng.prefix_cache.lookup(keys)
+        assert hit.all()
+        for i, s in enumerate(slots):
+            st = eng.prefix_cache.get_state(s)
+            assert torch.equal(st["logits"], logits[i])
+            for k, v in cache.items():
+                assert torch.equal(st["cache"][k], v[:, i]), k
+    finally:
+        eng.prefix_cache.close()
