@@ -55,7 +55,15 @@ size on one 1,000,000-key synthetic URL index:
   ``forward``, layer 0 and the head against the port on the CPU, every
   reduced arch on the card against the CPU port, the index's slots
   against the cache's host dict, and every K4 call of the traffic against
-  the plain walk.
+  the plain walk;
+* LM training at the full width of deepseek-7b, cut to 15 layers so that
+  float32 weights, gradients and AdamW moments fit one card: 6
+  steps of 2 rows of 4,096 tokens (2 microbatches) through
+  ``train_loop.train``; remat off/none/dots bit-identical, a 1-layer cut's
+  gradients against the CPU port, every reduced arch's train step on the
+  card against the CPU, crash and resume bit for bit, a checkpoint from
+  the card restored on the CPU, and ``launch/train.py``.  No TPU kernel
+  lies on this path: it launches none of K1-K7.
 
 Every GetCDF (K2) and locate (K1) call of a second bulk load of the same
 keys (so that the recorder stays out of the timed one) is recorded and
@@ -76,8 +84,8 @@ before/after run): the phases that package cannot pass are skipped, each
 with a line that says so: the compaction phase, the check that the
 GetCDF/locate kernels' float ops all flush subnormals, the K7 phase with
 non-finite tables, the kernel-versus-plain checks on the underflow rows,
-and the execute, service, snapshot, wide-row, distributed and lm phases.
-Without it every phase runs.
+and the execute, service, snapshot, wide-row, distributed, lm and train
+phases.  Without it every phase runs.
 
 Output: one line per phase, then a JSON line of per-kernel numbers, then
 the last line ``{"ok": true, "device": {...}}``.
@@ -145,6 +153,16 @@ LM_REPEAT = 0.5             # ... share of repeated batches (launch/serve.py's d
 LM_CAPACITY = 12            # ... prefix-cache slots (16 prompts drawn: the LRU evicts
                             #     through DELETE)
 LM_MAX_LEN = 512            # ... the engine's KV window bound
+TRAIN_ARCH = "deepseek-7b"  # phase train: the arch trained at its published width
+TRAIN_LAYERS = 15           # ... its depth, cut so that training fits one card (PERF.md §4)
+TRAIN_REDUCED = False       # ... True only to rehearse the phase on the CPU
+TRAIN_SEQ = 4096            # ... tokens a row: train_4k's sequence length
+TRAIN_BATCH = 2             # ... rows a step
+TRAIN_ACCUM = 2             # ... microbatches a step (1 row each)
+TRAIN_STEPS = 6             # ... steps through train_loop.train
+TRAIN_CPU_TOKENS = 64       # ... check (c): one row of this many tokens, 1 layer
+TRAIN_PEAK_GB = 72.0        # ... the run's peak device memory must stay under this
+TRAIN_REMAT_LAYERS = 2      # ... check (b)'s depth
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
@@ -919,16 +937,24 @@ def wide_phase(dev):
     }
     out = {}
     for name, (kern, plain, out_bytes) in calls.items():
+        # the plain version's time is that of its call on the live delta
+        # below (one call, no warm-up): K4's takes ≈25 s on these rows
+        plains = {}
+        for ti in (empty, live):
+            sync()
+            t0 = time.perf_counter()
+            plains[id(ti)] = plain(ti)
+            sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
         same = all(torch.equal(a, b) for ti in (empty, live)
-                   for a, b in zip(kern(ti), plain(ti)))
+                   for a, b in zip(kern(ti), plains[id(ti)]))
         sync()
         if not same:
             fail(f"{name} differs from its plain version on rows of {WIDE_W} bytes")
         # the least bytes: the query rows and lengths in, the outputs out
         b_ms, b_by = bound_ms(WIDE_ROWS * (WIDE_W + 4 + out_bytes))
         out[name] = {"W": WIDE_W, "rows": WIDE_ROWS, "ms": kernel_ms(lambda: kern(live), 10),
-                     "plain_ms": time_cuda(lambda: plain(live), reps=1, warmup=0),
-                     "bound_ms": b_ms, "bound_by": b_by}
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
     say(f"phase wide: {WIDE_ROWS} rows of {WIDE_W} bytes (a staged row of "
         f"{4 * (((WIDE_W + 3) // 4) | 1)} bytes; a block's shared memory "
         f"{torch.cuda.get_device_properties(dev).shared_memory_per_block_optin}), read in "
@@ -2112,6 +2138,337 @@ def lm_phase(smi, dev):
     return launches, numbers
 
 
+def fwd_bwd_ms(model, batch, policy: str) -> tuple:
+    """One ``loss`` forward and backward under remat ``policy`` (``off`` or a
+    ``REPRO_REMAT_POLICY``), after a warm-up pass: (host ms ending in a sync,
+    the pass's peak device memory in GB)."""
+    from repro_torch.launch.steps import zero_grads
+
+    from _torch_cases import remat_policy
+
+    with remat_policy(policy):
+        for _ in range(2):
+            zero_grads(model)
+            sync()
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _ = model.loss(batch, remat=policy != "off")
+            loss.backward()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+    return ms, (torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else 0.0)
+
+
+def train_phase(smi, dev):
+    """Phase train: LM training at the full width of TRAIN_ARCH on the card,
+    cut to TRAIN_LAYERS layers, weights from a generator seeded 0: batches
+    of TRAIN_BATCH rows of TRAIN_SEQ tokens from ``TokenPipeline``,
+    TRAIN_ACCUM microbatches a step, the launcher's AdamW (lr 3e-4, float32
+    moments, warmup a tenth of the steps), TRAIN_STEPS steps through
+    ``train_loop.train``.  Checks, each failing the run:
+
+    (a) every loss finite, the first within 1.0 of ln(vocab) + 0.5 (unit
+        variance logits at initialisation), every grad norm > 0, every
+        parameter moved; the run's peak memory under TRAIN_PEAK_GB;
+    (b) remat off, ``none`` and ``dots`` give bit-identical gradients on one
+        microbatch, at TRAIN_REMAT_LAYERS layers of the same width;
+    (c) the loss and every gradient of a 1-layer cut at full width on one row
+        of TRAIN_CPU_TOKENS tokens, the card against the CPU port with the
+        same weights: the loss within LM_CARD_TOL, each gradient within
+        ``grad_errors``' bound;
+    (d) every reduced arch, one train step, card against the CPU port
+        (``lm_train_step_card_vs_cpu``);
+    (e) the reduced deepseek on the card: crashed at step 7 and resumed, bit
+        for bit the uninterrupted run; accum 2 against accum 1 within the
+        reference's test bounds; a checkpoint written on the card restores
+        on the CPU, equal;
+    (f) ``launch/train.main(["--arch", TRAIN_ARCH, "--steps", "4"])`` on the
+        card.
+
+    Prints step ms, trained tokens/s, peak memory, one profiled step's kernel
+    time against its wall time, the optimizer's share of a step and the
+    remat policies' times.  Returns the index kernels' launches during the
+    training run (none of them is on this path) and the phase's numbers."""
+    import dataclasses as dc
+    import math
+    import tempfile
+
+    from repro_torch.configs.registry import ARCHS, get_arch
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import LMModel
+    from repro_torch.train import _tree
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import TrainConfig, train
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_cases import (LM_CARD_TOL, LM_GRAD_RTOL, grad_errors,
+                              lm_train_step_card_vs_cpu, remat_grads, train_crash_resume)
+
+    t_phase = time.time()
+    cuda = DEVICE == "cuda"
+    full = get_arch(TRAIN_ARCH)
+    cfg = full.reduced() if TRAIN_REDUCED else dc.replace(full, n_layers=TRAIN_LAYERS)
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH))
+
+    def on_device(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def check(ok, msg):
+        if not ok:
+            fail(f"phase train: {msg}")
+
+    micro = on_device({k: v[: TRAIN_BATCH // TRAIN_ACCUM] for k, v in pipe.batch_at(0).items()})
+
+    # (b) remat off / none / dots at TRAIN_REMAT_LAYERS layers of the same width
+    t = time.time()
+    small = LMModel(dc.replace(cfg, n_layers=TRAIN_REMAT_LAYERS), device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    grads = remat_grads(small, micro)
+    for policy in ("none", "dots"):
+        for name, g in grads["off"].items():
+            check(torch.equal(grads[policy][name], g),
+                  f"(b) remat {policy} gives another gradient of {name} than remat off")
+    del grads
+    remat_small = {p: fwd_bwd_ms(small, micro, p) for p in ("off", "none", "dots")}
+    per_layer_off_gb = (remat_small["off"][1] - remat_small["none"][1]) / TRAIN_REMAT_LAYERS
+    del small
+    if cuda:
+        torch.cuda.empty_cache()
+    say(f"phase train: (b) remat off, none and dots give bit-identical gradients of every "
+        f"parameter on one microbatch of {TRAIN_SEQ} tokens at {TRAIN_REMAT_LAYERS} layers of "
+        f"full width; forward + backward ms (peak GB): " + ", ".join(
+            f"{p} {ms:.1f} ({gb:.2f})" for p, (ms, gb) in remat_small.items())
+        + f"; recompute share of none {1 - remat_small['off'][0] / remat_small['none'][0]:.3f}"
+        f" ({smi}; {time.time() - t:.1f} s)")
+
+    # the model at the cell's depth
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = LMModel(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"phase train: {cfg.name} ({cfg.n_layers} of {full.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}): {n_params} parameters; float32 weights, gradients and two "
+        f"moments {16 * n_params / 1e9:.2f} GB")
+
+    # remat none / dots (/ off where it fits) at the cell's depth, before the
+    # optimizer's moments exist
+    remat_full = {p: fwd_bwd_ms(model, micro, p) for p in ("none", "dots")}
+    off_est = remat_full["none"][1] + per_layer_off_gb * cfg.n_layers
+    if off_est < 0.9 * 80:
+        remat_full["off"] = fwd_bwd_ms(model, micro, "off")
+    say(f"phase train: remat at {cfg.n_layers} layers, one microbatch forward + backward ms "
+        f"(peak GB): "
+        + ", ".join(f"{p} {ms:.1f} ({gb:.2f})" for p, (ms, gb) in remat_full.items())
+        + ("" if "off" in remat_full else
+           f"; off not run: {off_est:.1f} GB estimated ({per_layer_off_gb:.2f} GB a layer "
+           f"more than none at {TRAIN_REMAT_LAYERS} layers)") + f" ({smi})")
+
+    # (c) a 1-layer cut at full width on one row: the card against the CPU port
+    t = time.time()
+    one = dc.replace(cfg, n_layers=1)
+    row = {k: v[:1, :TRAIN_CPU_TOKENS] for k, v in pipe.batch_at(0).items()}
+    # built on the meta device (no initialisation) and given the card's weights
+    cpu1 = LMModel(one, device="meta", generator=torch.Generator()).to_empty(device="cpu")
+    with torch.no_grad():
+        for name, p in cpu1.top.items():
+            p.copy_(model.top[name])
+        for name, p in cpu1.blocks.items():
+            p.copy_(model.blocks[name][:1])
+    steps_mod.zero_grads(cpu1)
+    cpu_loss, _ = cpu1.loss({k: torch.from_numpy(v) for k, v in row.items()})
+    cpu_loss.backward()
+    model.cfg = one
+    try:
+        steps_mod.zero_grads(model)
+        card_loss, card_met = model.loss(on_device(row))
+        card_loss.backward()
+    finally:
+        model.cfg = cfg
+    card_loss, cpu_loss = float(card_met["loss"]), float(cpu_loss.detach())
+    card_g = {k: (p.grad[0] if k.startswith("blocks.") else p.grad)
+              for k, p in model.params().items()}
+    errs = grad_errors(card_g, {k: p.grad for k, p in cpu1.params().items()})
+    del cpu1, card_g
+    loss_err = abs(card_loss - cpu_loss)
+    check(loss_err <= LM_CARD_TOL, f"(c) loss {card_loss} on the card against {cpu_loss} on "
+          "the CPU")
+    for name, (err, bound) in errs.items():
+        check(err <= bound, f"(c) gradient of {name}: |card - cpu| {err:.4g} over {bound:.4g}")
+    worst_c = max(errs.items(), key=lambda kv: kv[1][0] / max(kv[1][1], 1e-30))
+    say(f"phase train: (c) 1 layer at full width on one row of {TRAIN_CPU_TOKENS} tokens, card "
+        f"vs cpu: loss {card_loss:.6f} / {cpu_loss:.6f} (|diff| {loss_err:.3g}, "
+        f"tol {LM_CARD_TOL}); gradients within their bounds (relative {LM_GRAD_RTOL}), the "
+        f"closest {worst_c[0]} at {worst_c[1][0] / worst_c[1][1]:.3f} of its bound "
+        f"({time.time() - t:.1f} s)")
+
+    # the run: TRAIN_STEPS steps through train_loop.train, counts set to 0 first
+    opt = opt_mod.AdamWConfig(lr=3e-4, state_dtype=torch.float32,
+                              warmup_steps=max(TRAIN_STEPS // 10, 1), total_steps=TRAIN_STEPS)
+    before = {k: p.detach().clone() for k, p in model.params().items()
+              if p.numel() < 1 << 24}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    sync()
+    t = time.time()
+    out = train(model, pipe.batch_at, opt, TrainConfig(steps=TRAIN_STEPS, accum=TRAIN_ACCUM),
+                generator=torch.Generator(dev).manual_seed(0))
+    sync()
+    run_s = time.time() - t
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"(a) a loss is not finite: {losses}")
+    want0 = math.log(cfg.vocab) + 0.5
+    check(abs(losses[0] - want0) <= 1.0, f"(a) first loss {losses[0]} not within 1.0 of "
+          f"ln({cfg.vocab}) + 0.5 = {want0:.3f}")
+    check(all(h["grad_norm"] > 0 for h in hist), "(a) a grad norm is not > 0")
+    unmoved = [k for k, v in before.items() if torch.equal(model.params()[k].detach(), v)]
+    check(not unmoved, f"(a) parameters {unmoved} did not move")
+    check(peak_gb <= TRAIN_PEAK_GB, f"(a) peak memory {peak_gb:.2f} GB over {TRAIN_PEAK_GB}")
+    check(not any(launches.values()), f"index kernels launched while training: {launches}")
+    step_s = sorted(h["step_time_s"] for h in hist[1:])
+    step_ms = 1e3 * step_s[len(step_s) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say(f"phase train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens (accum "
+        f"{TRAIN_ACCUM}) in {run_s:.1f} s ({smi}): step ms "
+        f"{[round(1e3 * h['step_time_s'], 1) for h in hist]}, "
+        f"median after the first {step_ms:.1f} = {tokens / step_ms * 1e3:.0f} trained tokens/s; "
+        f"loss {[round(x, 4) for x in losses]} (first vs ln(V) + 0.5 = {want0:.3f}), "
+        f"grad_norm {[round(h['grad_norm'], 3) for h in hist]}, lr "
+        f"{[float('%.3g' % h['lr']) for h in hist]}; max_memory_allocated {peak_gb:.2f} GB "
+        f"(limit {TRAIN_PEAK_GB}); every parameter moved; index kernel launches {launches}")
+
+    # the optimizer's share of a step, and one profiled step
+    state = out["opt_state"]
+    tree = model.param_tree()
+    grads_tree = _tree.map_with_path(lambda _, p: p.grad, tree)
+    opt_ms = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        opt_mod.apply_updates(tree, grads_tree, state, opt)
+        sync()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn = steps_mod.make_train_step(model, opt, accum=TRAIN_ACCUM)
+    batch = on_device(pipe.batch_at(TRAIN_STEPS))
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    sync()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        sync()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        head = re.sub(r"^void |<.*$|\(.*$", "", e.name).replace("at::native::", "")[:40]
+        by_name[head][0] += e.time_range.elapsed_us() / 1e3
+        by_name[head][1] += 1
+    dev_ms = sum(ms for ms, _ in by_name.values())
+    say(f"phase train: optimizer (apply_updates, {n_params} parameters) {opt_ms[-1]:.1f} ms = "
+        f"{opt_ms[-1] / step_ms:.3f} of a step; one profiled step: {dev_ms:.1f} ms of kernel "
+        f"time against the {step_ms:.1f} ms step (idle share "
+        f"{max(0.0, 1 - dev_ms / step_ms):.3f}; against the profiled step's own "
+        f"{prof_wall:.1f} ms wall, which the profiler slows, "
+        f"{max(0.0, 1 - dev_ms / prof_wall):.3f}), {len(kernels)} kernel launches ({smi}); "
+        "by kernel: "
+        + ", ".join(f"{k} {ms:.1f} ms x{n}" for k, (ms, n) in sorted(
+            by_name.items(), key=lambda kv: -kv[1][0])[:8]))
+    del out, state, tree, grads_tree, step_fn, batch, prof, kernels, before, model, micro
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) every reduced arch: one train step, the card against the CPU port
+    t = time.time()
+    reduced = {}
+    for name in ARCHS:
+        r = lm_train_step_card_vs_cpu(name, dev)
+        lr = r["cpu"]["lr"]
+        check(abs(r["card"]["loss"] - r["cpu"]["loss"]) <= LM_CARD_TOL,
+              f"(d) {name}: loss {r['card']['loss']} on the card, {r['cpu']['loss']} on the cpu")
+        check(abs(r["card"]["grad_norm"] - r["cpu"]["grad_norm"])
+              <= LM_GRAD_RTOL * r["cpu"]["grad_norm"], f"(d) {name}: grad norms {r['card']} "
+              f"{r['cpu']}")
+        for g, (err, bound) in r["grads"].items():
+            check(err <= bound, f"(d) {name}: gradient of {g}: {err:.4g} over {bound:.4g}")
+        check(r["param_err"] <= 2.02 * lr, f"(d) {name}: parameters {r['param_err']:.3g} apart "
+              f"after the step (lr {lr:.3g})")
+        reduced[name] = max(e / b for e, b in r["grads"].values())
+    say(f"phase train: (d) reduced archs, one step card vs cpu: losses within {LM_CARD_TOL}, "
+        f"every gradient within its bound; the largest share of its bound: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in reduced.items()) + f" ({time.time() - t:.1f} s)")
+
+    # (e) the reduced deepseek: crash and resume, accum, a checkpoint card -> cpu
+    t = time.time()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        res, resumed, clean = train_crash_resume(dev, tmp)
+        check(res["resumed_from"] == 6, f"(e) resumed from {res['resumed_from']}, not 6")
+        check(all(torch.equal(v, clean[k]) for k, v in resumed.items()),
+              "(e) the resumed run's parameters differ from the uninterrupted run's")
+        r = ARCHS[TRAIN_ARCH].reduced()
+        cpu_m = LMModel(r, device="cpu", generator=torch.Generator().manual_seed(5))
+        ocfg = opt_mod.AdamWConfig(state_dtype=torch.float32)
+        got, meta = ckpt_mod.restore_latest(os.path.join(tmp, "crash"), {
+            "params": cpu_m.param_tree(), "opt": opt_mod.init_state(cpu_m.param_tree(), ocfg)})
+        check(meta["step"] == 10, f"(e) the latest checkpoint is step {meta['step']}")
+        gp = got["params"]
+        restored = {**{k: v for k, v in gp.items() if k != "blocks"},
+                    **{"blocks." + k: v for k, v in gp["blocks"].items()}}
+        check(set(restored) == set(resumed) and all(
+            v.device.type == "cpu" and torch.equal(v, resumed[k].cpu())
+            for k, v in restored.items()),
+              "(e) the card's checkpoint restores on the CPU to other values")
+    acc = {}
+    for accum in (1, 2):
+        m = LMModel(r, device=dev, generator=torch.Generator(dev).manual_seed(2))
+        rng = np.random.default_rng(2)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, r.vocab, (4, 16)).astype(
+            np.int32)).to(dev), "labels": torch.from_numpy(rng.integers(
+                0, r.vocab, (4, 16)).astype(np.int32)).to(dev)}
+        _, met = steps_mod.make_train_step(m, ocfg, accum=accum)(
+            opt_mod.init_state(m.param_tree(), ocfg), batch)
+        acc[accum] = (float(met["loss"]), [p.detach().float().cpu() for p in m.parameters()])
+    check(abs(acc[1][0] - acc[2][0]) < 1e-2, f"(e) accum losses {acc[1][0]} / {acc[2][0]}")
+    check(all(torch.allclose(a, b, rtol=2e-2, atol=2e-3) for a, b in zip(acc[1][1], acc[2][1])),
+          "(e) accum 2 parameters outside rtol 2e-2, atol 2e-3 of accum 1's")
+    say(f"phase train: (e) reduced {TRAIN_ARCH} on the card: killed at step 7, resumed from "
+        f"6, bit for bit the uninterrupted run; the step-10 checkpoint restores on the CPU "
+        f"equal; accum 2 vs 1: loss {acc[2][0]:.6f} / {acc[1][0]:.6f}, parameters within the "
+        f"reference's bounds ({time.time() - t:.1f} s)")
+
+    # (f) the launcher, reduced, on the card
+    t = time.time()
+    lout = train_launcher.main(["--arch", TRAIN_ARCH, "--steps", "4"] +
+                               ([] if cuda else ["--device", "cpu"]))
+    check(len(lout["history"]) == 4 and all(math.isfinite(h["loss"]) for h in lout["history"])
+          and lout["params"]["embed"].device.type == dev.type, "(f) the launcher's run")
+    say(f"phase train: (f) launch/train.main --arch {TRAIN_ARCH} --steps 4 on {dev}: losses "
+        f"{[round(h['loss'], 4) for h in lout['history']]} ({time.time() - t:.1f} s); "
+        f"phase {time.time() - t_phase:.1f} s")
+    numbers = {"arch": cfg.name, "layers": cfg.n_layers, "parameters": n_params,
+               "static_gb": 16 * n_params / 1e9, "peak_gb": peak_gb, "step_ms": step_ms,
+               "tokens_per_s": tokens / step_ms * 1e3, "losses": losses,
+               "step_ms_all": [1e3 * h["step_time_s"] for h in hist],
+               "optimizer_ms": opt_ms[-1], "profiled_step_ms": prof_wall,
+               "profiled_step_device_ms": dev_ms, "remat_small": remat_small,
+               "remat_full": remat_full, "card_vs_cpu_loss_err": loss_err,
+               "reduced_grad_share": reduced}
+    return launches, numbers
+
+
 def free_port() -> int:
     """A free TCP port on the loopback address."""
     import socket
@@ -2698,6 +3055,15 @@ def main(parent: bool = False) -> int:
         for r in rows:
             r["launches_by_path"]["lm"] = lm_launches[r["name"]]
         next(r for r in rows if r["name"] == "fused_search")["lm"] = lm_numbers
+
+    # 17. LM training at full width, after phase lm has freed its model
+    if parent:
+        say("phase train: skipped (--parent: the package predates LM training)")
+    else:
+        train_launches, train_numbers = train_phase(smi, dev)
+        for r in rows:
+            r["launches_by_path"]["train"] = train_launches[r["name"]]
+        say("phase train: numbers " + json.dumps(train_numbers))
     say(f"phase done in {time.time() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2714,5 +3080,5 @@ if __name__ == "__main__":
                     help="skip the phases an older package cannot pass: compaction, the "
                          "flush check of the float ops, K7's non-finite tables, the "
                          "underflow rows, execute, the service, snapshots, wide rows, "
-                         "the distributed index and the LM serving path")
+                         "the distributed index, the LM serving path and LM training")
     sys.exit(main(ap.parse_args().parent))

@@ -1,5 +1,5 @@
-"""Transformer building blocks, forward only: norms, RoPE, chunked
-(flash-style) attention, decode attention, MLP variants and the
+"""Transformer building blocks: norms, RoPE, chunked (flash-style) attention
+with its FlashAttention backward, decode attention, MLP variants and the
 sorted-grouped-GEMM MoE without a mesh.  The port of
 :mod:`repro.models.layers`.
 
@@ -11,10 +11,20 @@ float32: a product of two bf16 values is exact in float32, so the result is
 the reference's up to summation order.  The other products stay in bf16,
 as the reference's do.  Attention is plain torch that follows the
 reference's algorithm step for step (never ``scaled_dot_product_attention``),
-so that its arithmetic can be traced against it.
+so that its arithmetic can be traced against it; its backward is the
+reference's custom VJP (``_Flash``), and the JAX package computes neither
+in a Pallas kernel.
 
-Not here yet: the flash attention's custom backward (the training slice)
-and the expert-parallel MoE over a mesh (with ``distributed/sharding``).
+The products against a weight matrix (the reference's dots with no batch
+dimension, ``bsd,de->bse``) are written ``x @ w``, which runs as one
+``aten.mm``; the batched ones (attention, the MoE's experts) are einsums,
+which run as ``aten.bmm``.  The ``dots`` remat policy
+(:mod:`repro_torch.models.transformer`) saves exactly the ``aten.mm``
+outputs, as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+saves the reference's.
+
+Not here yet: the expert-parallel MoE over a mesh (with
+``distributed/sharding``).
 """
 from __future__ import annotations
 
@@ -156,6 +166,71 @@ def _flash_fwd_impl(qg, kk, vv, causal: bool, window: int, q_offset: int, Qc: in
     return torch.cat(outs, dim=3), torch.cat(lses, dim=3)
 
 
+def _flash_bwd(causal: bool, window: int, q_offset: int, Qc: int, Kc: int,
+               qg, kk, vv, out, lse, dout):
+    """FlashAttention-style backward, the reference's ``_flash_bwd`` loop for
+    loop: probability tiles recomputed as ``exp(s - lse)`` from the
+    residuals ``(q, k, v, out, lse)``, every product and sum in float32,
+    ``dk``/``dv`` accumulated per key chunk, each gradient cast back to its
+    input's dtype."""
+    B, KV, g, S, hd = qg.shape
+    T = kk.shape[2]
+    nq, nk = S // Qc, T // Kc
+    scale = 1.0 / math.sqrt(hd)
+    dev = qg.device
+    q_pos0 = torch.arange(Qc, dtype=torch.int32, device=dev)
+    k_pos0 = torch.arange(Kc, dtype=torch.int32, device=dev)
+    delta = torch.sum(dout.float() * out.float(), dim=-1)  # (B,KV,g,S)
+    dk = torch.zeros((B, KV, T, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, KV, T, hd), dtype=torch.float32, device=dev)
+    dqs = []
+    for qi in range(nq):
+        rows = slice(qi * Qc, (qi + 1) * Qc)
+        qc = qg[:, :, :, rows]
+        doc = dout[:, :, :, rows].float()
+        lsec = lse[..., rows]
+        dc = delta[..., rows]
+        qpos = q_pos0 + qi * Qc + q_offset
+        dq_c = torch.zeros((B, KV, g, Qc, hd), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            cols = slice(ki * Kc, (ki + 1) * Kc)
+            kc = kk[:, :, cols]
+            vc = vv[:, :, cols]
+            s = _f32_product("bkgqh,bkth->bkgqt", qc, kc) * scale
+            msk = _mask(qpos, k_pos0 + ki * Kc, causal, window)
+            s = torch.where(msk[None, None, None], s, NEG_INF)
+            p = torch.exp(s - lsec[..., None])  # (B,KV,g,Qc,Kc)
+            dv_blk = torch.einsum("bkgqt,bkgqh->bkth", p, doc)
+            dp = torch.einsum("bkgqh,bkth->bkgqt", doc, vc.float())
+            ds = p * (dp - dc[..., None]) * scale
+            dq_blk = torch.einsum("bkgqt,bkth->bkgqh", ds, kc.float())
+            dk_blk = torch.einsum("bkgqt,bkgqh->bkth", ds, qc.float())
+            dk[:, :, cols] += dk_blk
+            dv[:, :, cols] += dv_blk
+            dq_c = dq_c + dq_blk
+        dqs.append(dq_c)
+    dq = torch.cat(dqs, dim=3)
+    return dq.to(qg.dtype), dk.to(kk.dtype), dv.to(vv.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` (a ``jax.custom_vjp``): the forward loop runs
+    outside autograd and keeps only ``(qg, kk, vv, out, lse)``; the backward
+    is ``_flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, qg, kk, vv, causal, window, q_offset, Qc, Kc):
+        out, lse = _flash_fwd_impl(qg, kk, vv, causal, window, q_offset, Qc, Kc)
+        ctx.save_for_backward(qg, kk, vv, out, lse)
+        ctx.static = (causal, window, q_offset, Qc, Kc)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd(*ctx.static, *ctx.saved_tensors, dout)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, hd)
     k: torch.Tensor,  # (B, T, KV, hd)
@@ -168,8 +243,10 @@ def flash_attention(
     kv_chunk: int = 1024,
 ) -> torch.Tensor:
     """Online-softmax attention with (Qc × Kc) tiles; GQA via head grouping.
-    Forward only: the (B, H, S, T) score matrix is never materialized, the
-    peak extra memory is O(B·H·Qc·Kc) per step."""
+
+    The (B, H, S, T) score matrix is never materialized in either pass —
+    the backward recomputes probability tiles blockwise (FlashAttention
+    backward).  Peak extra memory is O(B·H·Qc·Kc) per step."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -177,7 +254,7 @@ def flash_attention(
     qg = q.reshape(B, S, KV, g, hd).permute(0, 2, 3, 1, 4)
     kk = k.permute(0, 2, 1, 3)
     vv = v.permute(0, 2, 1, 3)
-    out, _ = _flash_fwd_impl(qg, kk, vv, causal, window, q_offset, Qc, Kc)
+    out = _Flash.apply(qg, kk, vv, causal, window, q_offset, Qc, Kc)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
 
 
@@ -224,11 +301,11 @@ def _act(a: torch.Tensor, act: str, dtype) -> torch.Tensor:
 
 
 def mlp_apply(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
-    a = torch.einsum("bsd,df->bsf", x, p["wi0"])
+    a = x @ p["wi0"]
     h = _act(a, act, x.dtype)
     if act == "swiglu":
-        h = h * torch.einsum("bsd,df->bsf", x, p["wi1"])
-    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+        h = h * (x @ p["wi1"])
+    return h @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +379,7 @@ def moe_apply(
     E = p["router"].shape[1]
     wi1 = p.get("wi1", p["wi0"])  # unused when act != swiglu
     xt = x.reshape(B * S, d)
-    logits = torch.einsum("td,de->te", xt, p["router"]).float()
+    logits = (xt @ p["router"]).float()
     out = _moe_dispatch_compute(
         xt, logits, 0, E, p["wi0"], wi1, p["wo"],
         top_k=top_k, capacity_factor=capacity_factor, act=act)

@@ -1,10 +1,12 @@
-"""Mamba-1 selective SSM block (falcon-mamba / hymba substrate), forward
-only: the port of :mod:`repro.models.ssm`.
+"""Mamba-1 selective SSM block (falcon-mamba / hymba substrate): the port of
+:mod:`repro.models.ssm`.
 
 Full-sequence path: vectorized projections and a time loop carrying the
-(B, di, N) state.  The reference cuts its scan into chunks, each under
-``jax.checkpoint``, to bound training memory; the step is the same, and the
-chunks wait for the training slice.
+(B, di, N) state, cut into chunks as the reference's scan is, each chunk
+under ``torch.utils.checkpoint`` when gradients are recorded (the
+reference's ``jax.checkpoint``): the backward keeps only the chunks'
+boundary states.  The steps and their order are the same with or without
+the chunks.
 Decode path: the O(1) single-token state update.
 
 ``softplus`` is ``logaddexp(x, 0)``, the reference's ``jax.nn.softplus``
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -30,17 +33,37 @@ def _causal_conv(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     return (out + b.float()).to(xs.dtype)
 
 
-def _ssm_inner(u, dt, Bc, Cc, A, D, h0):
-    """Selective scan.  u/dt: (B,S,di); Bc/Cc: (B,S,N); A: (di,N); h0: (B,di,N)f32."""
+def _scan_chunk(h, u, dt, Bc, Cc, A):
+    """The time loop over one chunk: (the state after it, y (B,c,di))."""
     ys = []
-    h = h0
     for t in range(u.shape[1]):
         u_t, dt_t, B_t, C_t = u[:, t], dt[:, t], Bc[:, t], Cc[:, t]
         dA = torch.exp(dt_t.float()[..., None] * A[None])      # (B,di,N)
         dBu = (dt_t * u_t).float()[..., None] * B_t.float()[:, None, :]
         h = h * dA + dBu
         ys.append(torch.einsum("bdn,bn->bd", h, C_t.float()).to(u.dtype))
-    y = torch.stack(ys, dim=1) + u * D.to(u.dtype)[None, None, :]
+    return h, torch.stack(ys, dim=1)
+
+
+def _ssm_inner(u, dt, Bc, Cc, A, D, h0, chunk: int = 64):
+    """Selective scan.  u/dt: (B,S,di); Bc/Cc: (B,S,N); A: (di,N); h0: (B,di,N)f32.
+
+    Chunked + per-chunk remat: the naive time loop's backward saves the
+    (B,di,N) state at *every* step.  Recomputing each chunk keeps only the
+    S/chunk boundary states and one chunk's steps at a time."""
+    S = u.shape[1]
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    h, ys = h0, []
+    for t0 in range(0, S, c):
+        xs = (u[:, t0:t0 + c], dt[:, t0:t0 + c], Bc[:, t0:t0 + c], Cc[:, t0:t0 + c])
+        if torch.is_grad_enabled():
+            h, y = checkpoint(_scan_chunk, h, *xs, A, use_reentrant=False)
+        else:
+            h, y = _scan_chunk(h, *xs, A)
+        ys.append(y)
+    y = torch.cat(ys, dim=1) + u * D.to(u.dtype)[None, None, :]
     return y, h
 
 
@@ -49,7 +72,7 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg, h0=None, conv_state=None,
     """Full-sequence mamba block. x: (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
     di, N, dtr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xz = x @ p["in_proj"]
     xs, z = torch.chunk(xz, 2, dim=-1)
     if conv_state is not None:
         xs_ext = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
@@ -57,17 +80,17 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg, h0=None, conv_state=None,
     else:
         conv_full = _causal_conv(xs, p["conv_w"], p["conv_b"])
     u = F.silu(conv_full.float()).to(x.dtype)
-    xdbl = torch.einsum("bsi,ie->bse", u, p["x_proj"])
+    xdbl = u @ p["x_proj"]
     dt_in, Bc, Cc = torch.split(xdbl, [dtr, N, N], dim=-1)
     dt = _softplus(
-        torch.einsum("bsr,ri->bsi", dt_in, p["dt_proj"]).float() + p["dt_bias"].float()
+        (dt_in @ p["dt_proj"]).float() + p["dt_bias"].float()
     ).to(x.dtype)
     A = -torch.exp(p["A_log"].float())
     if h0 is None:
         h0 = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
     y, h = _ssm_inner(u, dt, Bc, Cc, A, p["D"], h0)
     y = y * F.silu(z.float()).to(x.dtype)
-    out = torch.einsum("bsi,id->bsd", y, p["out_proj"])
+    out = y @ p["out_proj"]
     if return_state:
         ck = cfg.ssm_conv
         new_conv = (xs if conv_state is None else xs_ext)[:, -(ck - 1):, :]

@@ -17,19 +17,29 @@ bf16, or int8 with bf16 ``k_scale``/``v_scale``; ``ssm`` float32 and
 in place (the reference's ``dynamic_update_slice`` under buffer donation),
 so a caller that keeps a per-row state across steps keeps a copy.
 
-Forward only: ``forward(remat=...)`` accepts the flag, and activation
-checkpointing, ``loss`` and the mesh (``param_specs``, ``constrain``) come
-with the training and multi-card slices.
+Training: ``loss`` is the reference's masked token cross-entropy over
+``forward``'s float32 logits; ``forward(remat=True)`` runs each block under
+``torch.utils.checkpoint`` (``REPRO_REMAT_POLICY``: ``none``, the default,
+recomputes the whole block; ``dots`` saves the weight products, the
+``aten.mm`` outputs).  Where a stacked parameter holds a ``.grad`` buffer
+(``launch/steps.py`` keeps one), each layer's gradient is summed straight
+into its slice of that buffer, as the reference's scan writes a layer's
+gradient into its slice: no per-layer gradient of the whole stack.
+
+Not yet: the mesh (``param_specs``, ``constrain``), with the multi-card
+slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._build import resolve_device
@@ -50,6 +60,14 @@ from .layers import (
 from .ssm import mamba_decode_step, mamba_forward
 
 DECODE_CAPACITY_FACTOR = 4.0   # the reference's MoE capacity in decode_step
+# the ops whose outputs the `dots` remat policy saves: the products against a
+# weight matrix (layers.py writes them `x @ w`), the reference's dots with no
+# batch dimension
+WEIGHT_PRODUCTS = [torch.ops.aten.mm.default]
+
+
+def _save_weight_products():
+    return create_selective_checkpoint_contexts(WEIGHT_PRODUCTS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +178,40 @@ class LMModel(nn.Module):
         """Layer ``l``'s parameters under the reference's names (views)."""
         return {n: self.blocks[_key(n)][l] for n in self.layer_defs()}
 
+    def param_tree(self) -> dict:
+        """The parameters in the reference's tree: the top ones, and the
+        stacked layer ones under ``blocks`` (the live tensors)."""
+        out = dict(self.top.items())
+        out["blocks"] = {n: self.blocks[_key(n)] for n in self.layer_defs()}
+        return out
+
+    def abstract_params(self) -> dict:
+        """The parameter tree's shapes and dtypes as meta tensors."""
+        def meta(shape):
+            return torch.empty(shape, dtype=torch.float32, device="meta")
+
+        out = {n: meta(pd.shape) for n, pd in self.top_defs().items()}
+        out["blocks"] = {n: meta((self.cfg.n_layers,) + pd.shape)
+                         for n, pd in self.layer_defs().items()}
+        return out
+
+    def _grad_layer(self, l: int) -> Dict[str, torch.Tensor]:
+        """Layer ``l``'s parameters for a pass that records gradients.  Where
+        the stacked parameter holds a ``.grad`` buffer, a leaf view of layer
+        ``l`` whose ``.grad`` is that buffer's slice ``l``: autograd adds the
+        layer's gradient into the slice in place.  Otherwise the plain view
+        (autograd then builds a gradient of the whole stack per layer)."""
+        out = {}
+        for n in self.layer_defs():
+            stacked = self.blocks[_key(n)]
+            if stacked.grad is None or not torch.is_grad_enabled():
+                out[n] = stacked[l]
+            else:
+                leaf = stacked.detach()[l].requires_grad_()
+                leaf.grad = stacked.grad[l]
+                out[n] = leaf
+        return out
+
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
@@ -193,13 +245,13 @@ class LMModel(nn.Module):
         c = self.cfg
         B, S, d = h.shape
         H, KV, hd = c.n_heads_padded, c.n_kv_padded, c.hd
-        q = torch.einsum("bsd,de->bse", h, p["attn.wq"]).reshape(B, S, H, hd)
-        k = torch.einsum("bsd,de->bse", h, p["attn.wk"]).reshape(B, S, KV, hd)
-        v = torch.einsum("bsd,de->bse", h, p["attn.wv"]).reshape(B, S, KV, hd)
+        q = (h @ p["attn.wq"]).reshape(B, S, H, hd)
+        k = (h @ p["attn.wk"]).reshape(B, S, KV, hd)
+        v = (h @ p["attn.wv"]).reshape(B, S, KV, hd)
         q = apply_rope(q, positions, c.rope_variant)
         k = apply_rope(k, positions, c.rope_variant)
         o = flash_attention(q, k, v, causal=c.causal, window=c.swa_window)
-        out = torch.einsum("bse,ed->bsd", o.reshape(B, S, H * hd), p["attn.wo"])
+        out = o.reshape(B, S, H * hd) @ p["attn.wo"]
         if not return_kv:
             return out
         if c.swa_window:
@@ -271,7 +323,9 @@ class LMModel(nn.Module):
             B, S = x.shape[:2]
             pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
             return x, pos, 0
-        emb = self.top["embed"][batch["tokens"].long()].to(ACT_DTYPE)
+        # the whole table cast, then gathered, as the reference does: the
+        # backward sums a repeated token's gradients in bf16
+        emb = self.top["embed"].to(ACT_DTYPE)[batch["tokens"].long()]
         n_prefix = 0
         if c.frontend == "patch" and "patches" in batch:
             pe = torch.einsum("bpf,fd->bpd", batch["patches"].to(ACT_DTYPE),
@@ -293,15 +347,40 @@ class LMModel(nn.Module):
     # forward / prefill / decode
     # ------------------------------------------------------------------
     def forward(self, batch, remat: bool = True) -> torch.Tensor:
-        """Logits (B, S, vocab_padded) float32.  ``remat`` is accepted for the
-        reference's signature; activation checkpointing comes with training."""
+        """Logits (B, S, vocab_padded) float32.  With ``remat`` and gradients
+        recorded, each block runs under ``torch.utils.checkpoint``, its
+        policy read from ``REPRO_REMAT_POLICY`` as the reference reads it."""
         x, positions, n_prefix = self._embed_inputs(batch)
+
+        def block(p, x):
+            return self._block(p, x, positions)[0]
+
+        remat = remat and torch.is_grad_enabled()
+        policy = {}
+        if remat and os.environ.get("REPRO_REMAT_POLICY", "none") == "dots":
+            policy["context_fn"] = _save_weight_products
         for l in range(self.cfg.n_layers):
-            x, _ = self._block(self.layer(l), x, positions)
+            p = self._grad_layer(l)
+            x = checkpoint(block, p, x, use_reentrant=False, **policy) if remat else block(p, x)
         logits = self._head(x)
         if n_prefix:
             logits = logits[:, n_prefix:]
         return logits
+
+    def loss(self, batch, remat: bool = True) -> Tuple[torch.Tensor, dict]:
+        """Mean token cross-entropy over the labels ``>= 0`` (float32
+        ``log_softmax`` over ``vocab_padded``, labels clipped into it):
+        (loss, {"loss", "tokens"}).  ``remat`` as in ``forward`` (the
+        reference's loss always remats)."""
+        logits = self.forward(batch, remat=remat)
+        labels = batch["labels"]
+        V = logits.shape[-1]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        safe = torch.clamp(labels.long(), 0, V - 1)
+        ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return loss, {"loss": loss.detach(), "tokens": mask.sum()}
 
     @torch.no_grad()
     def prefill(self, batch, max_len: Optional[int] = None) -> Tuple[dict, torch.Tensor]:

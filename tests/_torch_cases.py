@@ -2,7 +2,9 @@
 from a seed so that both packages get the same arrays."""
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
 from fractions import Fraction
 
 import numpy as np
@@ -524,3 +526,136 @@ def lm_card_vs_cpu(arch: str, dev, close, seed: int = 3) -> list:
         gc, gl = card.decode_step(gc, tok.to(dev), S + step)
         out.append(close(f"decode step {step}", gl, cl))
     return out
+
+
+# a gradient held to another package's or device's: within LM_GRAD_RTOL of
+# its norm, plus LM_GRAD_NOISE of the whole gradient's norm for a tensor that
+# is rounding noise on both sides (a top-1 router's gate is divided by
+# itself: zero in exact arithmetic; test_torch_lm_grad.py's
+# test_top1_router_grad_is_rounding_noise)
+LM_GRAD_RTOL = 2e-2
+LM_GRAD_NOISE = 1e-6
+
+
+def _f64(x) -> np.ndarray:
+    if hasattr(x, "detach"):
+        x = x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float64)
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """{name: (|got - want|, the bound it must stay under)} for two dicts of
+    gradients with the same names (tensors on any device, or arrays)."""
+    want = {k: _f64(v) for k, v in want.items()}
+    total = np.sqrt(sum(float(np.sum(w * w)) for w in want.values()))
+    return {k: (float(np.linalg.norm(_f64(got[k]) - w)),
+                LM_GRAD_RTOL * float(np.linalg.norm(w)) + LM_GRAD_NOISE * total)
+            for k, w in want.items()}
+
+
+def lm_train_batch(cfg, rng, B: int, S: int) -> dict:
+    """A labelled batch for ``cfg`` as CPU tensors: tokens (hubert: frames),
+    labels with two masked (-1), internvl's patches."""
+    import torch
+
+    labels = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    labels[0, :2] = -1
+    batch = {"labels": torch.from_numpy(labels)}
+    if cfg.frontend == "frame":
+        fr = rng.standard_normal((B, S, cfg.frontend_dim)).astype(np.float32)
+        batch["frames"] = torch.from_numpy(fr).to(torch.bfloat16)
+        return batch
+    batch["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+    if cfg.frontend == "patch":
+        pt = rng.standard_normal((B, cfg.n_frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+        batch["patches"] = torch.from_numpy(pt).to(torch.bfloat16)
+    return batch
+
+
+def lm_train_step_card_vs_cpu(arch: str, dev, seed: int = 3) -> dict:
+    """One train step (AdamW with float32 moments, accum 1) of the reduced
+    ``arch`` on ``dev`` and on the CPU port, same weights and batch (2 rows
+    of 16): each side's loss, grad norm and lr, ``grad_errors`` of the
+    step's gradients, and the largest parameter difference after it."""
+    import torch
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train import optimizer as opt
+
+    cfg, cpu, card = lm_pair(arch, dev)
+    batch = lm_train_batch(cfg, np.random.default_rng(seed), 2, 16)
+    ocfg = opt.AdamWConfig(state_dtype=torch.float32)
+    out = {}
+    for name, m, b in (("cpu", cpu, batch), ("card", card, {k: v.to(dev) for k, v in
+                                                             batch.items()})):
+        _, met = make_train_step(m, ocfg)(opt.init_state(m.param_tree(), ocfg), b)
+        out[name] = {k: float(v) for k, v in met.items()}
+    out["grads"] = grad_errors({k: p.grad for k, p in card.params().items()},
+                               {k: p.grad for k, p in cpu.params().items()})
+    out["param_err"] = max(float((a.detach().cpu() - b.detach()).abs().max())
+                           for a, b in zip(card.parameters(), cpu.parameters()))
+    return out
+
+
+@contextlib.contextmanager
+def remat_policy(policy: str):
+    """``REPRO_REMAT_POLICY`` set to ``policy`` inside the block (``off``:
+    left as it is; the caller passes ``remat=False``), restored after."""
+    before = os.environ.get("REPRO_REMAT_POLICY")
+    if policy != "off":
+        os.environ["REPRO_REMAT_POLICY"] = policy
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("REPRO_REMAT_POLICY", None)
+        else:
+            os.environ["REPRO_REMAT_POLICY"] = before
+
+
+def remat_grads(model, batch, policies=("off", "none", "dots")) -> dict:
+    """Every parameter's gradient of ``model.loss(batch)`` with remat off and
+    under each ``REPRO_REMAT_POLICY``: {policy: {name: gradient copy}}."""
+    from repro_torch.launch.steps import zero_grads
+
+    out = {}
+    for policy in policies:
+        with remat_policy(policy):
+            zero_grads(model)
+            loss, _ = model.loss(batch, remat=policy != "off")
+            loss.backward()
+        out[policy] = {k: p.grad.clone() for k, p in model.params().items()}
+    return out
+
+
+def train_crash_resume(dev, root: str):
+    """``tests/test_fault_tolerance.py``'s run on the port: the reduced
+    deepseek on ``dev``, 10 steps of batches of 4 × 16, checkpoints every 3
+    steps; killed at step 7 in ``root/crash`` and resumed, and uninterrupted
+    in ``root/clean``.  Returns (the resumed run's output, its parameters,
+    the clean run's parameters), the parameters as {name: copy}."""
+    import torch
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models import LMModel
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import TrainConfig, train
+
+    r = ARCHS["deepseek-7b"].reduced()
+    m = LMModel(r, device=dev)
+    pipe = TokenPipeline(PipelineConfig(vocab=r.vocab, seq_len=16, global_batch=4))
+    ocfg = opt.AdamWConfig(lr=1e-3, state_dtype=torch.float32, warmup_steps=2, total_steps=20)
+    crash, clean = os.path.join(root, "crash"), os.path.join(root, "clean")
+    try:
+        train(m, pipe.batch_at, ocfg, TrainConfig(steps=10, ckpt_every=3, ckpt_dir=crash,
+                                                  fail_at_step=7))
+    except RuntimeError as e:
+        if "injected failure at step 7" not in str(e):
+            raise
+    else:
+        raise AssertionError("the run did not fail at step 7")
+    out = train(m, pipe.batch_at, ocfg, TrainConfig(steps=10, ckpt_every=3, ckpt_dir=crash))
+    resumed = {k: p.detach().clone() for k, p in m.params().items()}
+    train(m, pipe.batch_at, ocfg, TrainConfig(steps=10, ckpt_every=3, ckpt_dir=clean))
+    return out, resumed, {k: p.detach().clone() for k, p in m.params().items()}

@@ -6,7 +6,9 @@ with its reason.  Run on the card with
 is exact for the index: a kernel that is off by one float32 ulp places a key
 in another slot.  The LM cases at the end hold the model's logits on the
 card to the port on the CPU within a stated tolerance (cuBLAS sums its bf16
-products in another order), and the served tokens exactly.
+products in another order), and the served tokens exactly; the training
+cases hold a train step's loss and gradients to the CPU port within stated
+tolerances, and crash-resume and the remat settings bit for bit.
 """
 import bisect
 import dataclasses
@@ -15,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, LM_CARD_TOL, WORD_BATCHES,
-                          WORD_WINDOW, edge_cdf_rows, lm_card_vs_cpu, lm_pair, nan_equal,
-                          nonfinite_tables, query_rows, saturation_cases, short_orders,
-                          tie_cases, tie_table, trimmed, underflow_keys, underflow_table,
-                          wide_edge_case, word_edge_case, word_edge_indexes, word_rows)
+from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, LM_CARD_TOL, LM_GRAD_RTOL,
+                          WORD_BATCHES, WORD_WINDOW, edge_cdf_rows, lm_card_vs_cpu, lm_pair,
+                          lm_train_batch, lm_train_step_card_vs_cpu, nan_equal,
+                          nonfinite_tables, query_rows, remat_grads, saturation_cases,
+                          short_orders, tie_cases, tie_table, train_crash_resume, trimmed,
+                          underflow_keys, underflow_table, wide_edge_case, word_edge_case,
+                          word_edge_indexes, word_rows)
 from repro_torch.core.strings import StringSet
 from repro_torch.core.builder import LITSBuilder, LITSConfig
 from repro_torch.core.tensor_index import DATA_FIELDS, freeze, pad_queries
@@ -825,3 +829,46 @@ def test_cuda_engine_stored_state_is_unchanged_by_decoding(cuda):
                 assert torch.equal(st["cache"][k], v[:, i]), k
     finally:
         eng.prefix_cache.close()
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "chatglm3-6b", "deepseek-7b",
+                                  "falcon-mamba-7b", "h2o-danube-3-4b", "hubert-xlarge",
+                                  "hymba-1.5b", "internvl2-76b", "llama4-scout-17b-a16e",
+                                  "nemotron-4-15b"])
+def test_cuda_train_step_matches_cpu(cuda, arch):
+    """One train step of each reduced arch on the card against the CPU port
+    with the same weights and batch: the loss within ``LM_CARD_TOL``, the grad
+    norm within ``LM_GRAD_RTOL``, every gradient within ``grad_errors``'
+    bound, and the parameters after the step within 2.02 · lr (step 1 moves
+    each by ±lr where its gradient is not zero)."""
+    r = lm_train_step_card_vs_cpu(arch, cuda)
+    assert abs(r["card"]["loss"] - r["cpu"]["loss"]) <= LM_CARD_TOL
+    assert r["card"]["grad_norm"] == pytest.approx(r["cpu"]["grad_norm"], rel=LM_GRAD_RTOL)
+    for name, (err, bound) in r["grads"].items():
+        assert err <= bound, (name, err, bound)
+    assert r["param_err"] <= 2.02 * r["cpu"]["lr"]
+
+
+def test_cuda_crash_resume_bitwise(cuda, tmp_path):
+    """test_fault_tolerance.py's run on the card: killed at step 7, resumed
+    from the step-6 checkpoint, bit for bit the uninterrupted run."""
+    out, resumed, clean = train_crash_resume(cuda, str(tmp_path))
+    assert out["resumed_from"] == 6
+    for name, p in clean.items():
+        assert torch.equal(resumed[name], p), name
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "hymba-1.5b", "falcon-mamba-7b",
+                                  "arctic-480b", "internvl2-76b"])
+def test_cuda_remat_settings_give_bitwise_equal_grads(cuda, arch):
+    cfg, _cpu, card = lm_pair(arch, cuda)
+    batch = {k: v.to(cuda) for k, v in lm_train_batch(cfg, np.random.default_rng(1), 2,
+                                                       16).items()}
+    grads = remat_grads(card, batch)
+    for policy in ("none", "dots"):
+        for name, g in grads["off"].items():
+            assert torch.equal(grads[policy][name], g), (policy, name)
