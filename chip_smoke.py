@@ -63,7 +63,17 @@ size on one 1,000,000-key synthetic URL index:
   gradients against the CPU port, every reduced arch's train step on the
   card against the CPU, crash and resume bit for bit, a checkpoint from
   the card restored on the CPU, and ``launch/train.py``.  No TPU kernel
-  lies on this path: it launches none of K1-K7.
+  lies on this path: it launches none of K1-K7;
+* the device mesh at the full width of llama4-scout-17b-a16e (16 experts,
+  top-1), cut to 1 of 48 layers, on a one-rank NCCL ``("data", "model")``
+  mesh, where every collective is the identity, so every mesh result must
+  equal its no-mesh result bit for bit: 2 steps of 2 rows of 2,048 tokens
+  through ``train_loop.train`` under the mesh (DTensor parameters, moments
+  and gradients; the expert-parallel MoE) and without; one MoE block in
+  ``ag`` and ``ws``, and a prefill with decode steps; the int8-compressed
+  data-parallel step at deepseek-7b's full width (4 layers) against the
+  plain update on the round-tripped gradient; ``launch/train.py
+  --use-mesh``.  No TPU kernel lies on this path either.
 
 Every GetCDF (K2) and locate (K1) call of a second bulk load of the same
 keys (so that the recorder stays out of the timed one) is recorded and
@@ -84,8 +94,8 @@ before/after run): the phases that package cannot pass are skipped, each
 with a line that says so: the compaction phase, the check that the
 GetCDF/locate kernels' float ops all flush subnormals, the K7 phase with
 non-finite tables, the kernel-versus-plain checks on the underflow rows,
-and the execute, service, snapshot, wide-row, distributed, lm and train
-phases.  Without it every phase runs.
+and the execute, service, snapshot, wide-row, distributed, lm, train and
+mesh phases.  Without it every phase runs.
 
 Output: one line per phase, then a JSON line of per-kernel numbers, then
 the last line ``{"ok": true, "device": {...}}``.
@@ -163,6 +173,17 @@ TRAIN_STEPS = 6             # ... steps through train_loop.train
 TRAIN_CPU_TOKENS = 64       # ... check (c): one row of this many tokens, 1 layer
 TRAIN_PEAK_GB = 72.0        # ... the run's peak device memory must stay under this
 TRAIN_REMAT_LAYERS = 2      # ... check (b)'s depth
+MESH_ARCH = "llama4-scout-17b-a16e"  # phase mesh: the MoE arch trained at its published width
+MESH_LAYERS = 1             # ... its depth: 4.166 B parameters, 12 B each with bf16 moments
+MESH_REDUCED = False        # ... True only to rehearse the phase on the CPU
+MESH_SEQ = 2048             # ... tokens a row
+MESH_BATCH = 2              # ... rows a step
+MESH_ACCUM = 2              # ... microbatches a step (1 row each)
+MESH_STEPS = 2              # ... steps through train_loop.train, under the mesh and without
+MESH_PEAK_GB = 72.0         # ... either run's peak device memory must stay under this
+MESH_SERVE = (4, 48, 4)     # ... (b) prefill rows, prompt tokens, decode steps
+MESH_DP_ARCH = "deepseek-7b"  # ... (c) the compressed data-parallel step's arch, full width
+MESH_DP_LAYERS = 4          # ... its depth: 1.649 B parameters, 16 B each with the error state
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
@@ -2469,6 +2490,201 @@ def train_phase(smi, dev):
     return launches, numbers
 
 
+def mesh_phase(smi, dev):
+    """Phase mesh: the device mesh on one card.  A one-rank NCCL
+    ``("data", "model")`` mesh (``launch/mesh.make_host_mesh``; one card
+    holds one NCCL rank), on which every collective is the identity, so each
+    check holds the mesh result to its no-mesh result bit for bit
+    (``torch.equal``), each failing the run:
+
+    (a) MESH_ARCH at full width cut to MESH_LAYERS layers, weights from a
+        generator seeded 0, ``AdamWConfig``'s default bf16 moments:
+        MESH_STEPS steps of MESH_BATCH rows of MESH_SEQ tokens (MESH_ACCUM
+        microbatches) through ``train_loop.train`` under the mesh, then
+        without (the first run's state freed first): every loss, grad norm
+        and parameter equal; each run's peak memory under MESH_PEAK_GB;
+        each parameter's local shard the shape ``param_shardings`` gives it;
+    (b) on the second run's weights, layer 0's MoE block forward and
+        backward in ``ag`` and in ``ws``, and a prefill of MESH_SERVE's rows
+        and tokens with its decode steps, under the mesh and without;
+    (c) MESH_DP_ARCH at full width cut to MESH_DP_LAYERS layers: one
+        ``make_compressed_dp_step`` step over the one-rank ``data`` axis
+        equals the plain update applied to each gradient's
+        ``dequantize(quantize(g))``, and its error state is ``g32 -
+        dequantize(q, scale)``;
+    (d) ``launch/train.main(["--arch", MESH_ARCH, "--use-mesh", "--steps",
+        "3"])`` (reduced) on the card.
+
+    Prints ms a step both ways, the peaks, the local shard shapes, the
+    compressed step's ms against the plain step's and its wire bytes.
+    Returns the index kernels' launches during (a) (none is on this path)
+    and the phase's numbers."""
+    import dataclasses as dc
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LMModel
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import TrainConfig
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_cases import (compressed_vs_plain, mesh_train_pair, moe_block_mesh_vs_plain,
+                              serve_mesh_vs_plain)
+
+    def check(ok, msg):
+        if not ok:
+            fail(f"phase mesh: {msg}")
+
+    t_phase = time.time()
+    cuda = DEVICE == "cuda"
+    full = get_arch(MESH_ARCH)
+    cfg = full.reduced() if MESH_REDUCED else dc.replace(full, n_layers=MESH_LAYERS)
+    mesh = make_host_mesh(device=dev)
+    try:
+        # (a) the run under the mesh and the run without, counts set to 0 first
+        pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=MESH_SEQ,
+                                            global_batch=MESH_BATCH))
+        _build.reset_launches()
+        sync()
+        runs = mesh_train_pair(cfg, dev, mesh, pipe.batch_at, AdamWConfig(),
+                               TrainConfig(steps=MESH_STEPS, accum=MESH_ACCUM))
+        sync()
+        launches = dict(_build.LAUNCHES)
+        model = runs["plain"].pop("model")
+        n_params = sum(p.numel() for p in model.parameters())
+        hist = {k: r["history"] for k, r in runs.items()}
+        for key in ("loss", "grad_norm"):
+            got, want = ([h[key] for h in hist[k]] for k in ("mesh", "plain"))
+            check(got == want, f"(a) {key} under the mesh {got}, without {want}")
+        check(all(math.isfinite(h["loss"]) for h in hist["plain"]), "(a) a loss is not finite")
+        check(runs["plain"]["differ"] == [], f"(a) parameters {runs['plain']['differ']} differ "
+              "after the steps under the mesh and without")
+        for k, r in runs.items():
+            check(r["peak_gb"] <= MESH_PEAK_GB, f"(a) the {k} run's peak {r['peak_gb']:.2f} GB "
+                  f"over {MESH_PEAK_GB}")
+        layout = runs["mesh"]["layout"]
+        bad = [k for k, (got, want, same) in layout.items() if got != want or not same]
+        check(not bad, f"(a) local shards of {bad} off param_shardings")
+        check(not any(launches.values()), f"index kernels launched on the mesh path: {launches}")
+        step_ms = {k: [round(1e3 * h["step_time_s"], 1) for h in v] for k, v in hist.items()}
+        overhead = step_ms["mesh"][-1] / step_ms["plain"][-1] - 1
+        say(f"phase mesh: (a) {cfg.name} ({cfg.n_layers} of {full.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab}): {n_params} parameters, 12 B each with bf16 moments = "
+            f"{12 * n_params / 1e9:.2f} GB; {MESH_STEPS} steps of {MESH_BATCH} x {MESH_SEQ} "
+            f"tokens (accum {MESH_ACCUM}) under a one-rank {dist.get_backend().upper()} (1, 1) "
+            f"mesh and without: "
+            f"loss {[round(h['loss'], 6) for h in hist['mesh']]}, grad norm "
+            f"{[round(h['grad_norm'], 6) for h in hist['mesh']]}, every parameter: bit for bit "
+            f"equal; step ms mesh {step_ms['mesh']} / plain {step_ms['plain']} (last step's "
+            f"mesh overhead {overhead:+.4f}); peak GB mesh {runs['mesh']['peak_gb']:.2f} / plain "
+            f"{runs['plain']['peak_gb']:.2f} (limit {MESH_PEAK_GB}); runs "
+            f"{runs['mesh']['seconds']:.1f} / {runs['plain']['seconds']:.1f} s; index kernel "
+            f"launches {launches} ({smi})")
+        say("phase mesh: (a) local shards == param_shardings' on every parameter: " + ", ".join(
+            f"{k} {got}" for k, (got, _, _) in layout.items() if k.startswith(("blocks/moe",
+                                                                                "embed"))))
+
+        # (b) the MoE block in ag and ws, prefill and decode, on the same weights
+        t = time.time()
+        for p in model.parameters():
+            p.grad = None
+        if cuda:
+            torch.cuda.empty_cache()
+        x = torch.randn((1, MESH_SEQ, cfg.d_model), device=dev,
+                        generator=torch.Generator(dev).manual_seed(3)).to(torch.bfloat16)
+        for mode in ("ag", "ws"):
+            differ = moe_block_mesh_vs_plain(model, mesh, x, mode)
+            check(not differ, f"(b) the MoE block in {mode}: {differ} differ")
+        B, S, n_dec = MESH_SERVE
+        tokens = torch.from_numpy(np.random.default_rng(SEED + 9).integers(
+            0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+        differ = serve_mesh_vs_plain(model, mesh, tokens, n_dec)
+        check(not differ, f"(b) prefill and decode: {differ} differ")
+        del model, x
+        if cuda:
+            torch.cuda.empty_cache()
+        say(f"phase mesh: (b) layer 0's MoE block ({MESH_SEQ} tokens) forward and backward in "
+            f"ag and ws, a prefill of {B} x {S} tokens and {n_dec} decode steps: bit for bit "
+            f"equal under the mesh and without ({time.time() - t:.1f} s)")
+
+        # (c) the compressed data-parallel step against the plain update
+        t = time.time()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        dfull = get_arch(MESH_DP_ARCH)
+        dcfg = dfull.reduced() if MESH_REDUCED else dc.replace(dfull, n_layers=MESH_DP_LAYERS)
+        dmodel = LMModel(dcfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        dp_params = sum(p.numel() for p in dmodel.parameters())
+        row = {k: torch.from_numpy(v[:1]).to(dev) for k, v in TokenPipeline(PipelineConfig(
+            vocab=dcfg.vocab, seq_len=MESH_SEQ, global_batch=1)).batch_at(0).items()}
+        res = compressed_vs_plain(dmodel, mesh, row, AdamWConfig())
+        check(res["params_differ"] == [], f"(c) parameters {res['params_differ']} differ")
+        check(res["err_differ"] == [], f"(c) error state {res['err_differ']} differs")
+        check(res["compressed"]["loss"] == res["plain"]["loss"]
+              and res["compressed"]["grad_norm"] == res["plain"]["grad_norm"],
+              f"(c) metrics {res['compressed']} against {res['plain']}")
+        from repro_torch.distributed.compression import init_error_state, make_compressed_dp_step
+        from repro_torch.train import optimizer as opt_mod
+
+        ocfg = AdamWConfig()
+        tree = dmodel.param_tree()
+        state, err = opt_mod.init_state(tree, ocfg), init_error_state(tree)
+        comp_step = make_compressed_dp_step(dmodel, ocfg, mesh)
+        plain_step = steps_mod.make_train_step(dmodel, ocfg)
+        dp_ms = {"compressed": [], "plain": []}
+        for _ in range(2):
+            for name in ("plain", "compressed"):
+                sync()
+                t0 = time.perf_counter()
+                if name == "plain":
+                    state, _ = plain_step(state, row)
+                else:
+                    state, err, _ = comp_step(state, err, row)
+                sync()
+                dp_ms[name].append(round((time.perf_counter() - t0) * 1e3, 1))
+        peak_dp = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+        del dmodel, tree, state, err, comp_step, plain_step
+        if cuda:
+            torch.cuda.empty_cache()
+        say(f"phase mesh: (c) {dcfg.name} ({dcfg.n_layers} layers at full width, {dp_params} "
+            f"parameters): make_compressed_dp_step over the one-rank data axis == the plain "
+            f"update on dequantize(quantize(g)), and its error state == g32 - dequantize(q, "
+            f"scale), bit for bit; loss {res['compressed']['loss']:.6f}; ms a step (plain, "
+            f"compressed, twice in turns) plain {dp_ms['plain']} / compressed "
+            f"{dp_ms['compressed']}; wire bytes a step {res['wire_bytes']} against float32's "
+            f"{res['float32_bytes']} ({res['float32_bytes'] / res['wire_bytes']:.3f}x less); "
+            f"peak {peak_dp:.2f} GB ({smi}; {time.time() - t:.1f} s)")
+
+        # (d) the launcher under the mesh, reduced, on the card
+        t = time.time()
+        lout = train_launcher.main(["--arch", MESH_ARCH, "--use-mesh", "--steps", "3"] +
+                                   ([] if cuda else ["--device", "cpu"]))
+        losses = [h["loss"] for h in lout["history"]]
+        check(len(losses) == 3 and all(math.isfinite(x) for x in losses)
+              and lout["params"]["embed"].device.type == dev.type, "(d) the launcher's run")
+        say(f"phase mesh: (d) launch/train.main --arch {MESH_ARCH} --use-mesh --steps 3 on "
+            f"{dev}: losses {[round(x, 4) for x in losses]} ({time.time() - t:.1f} s); phase "
+            f"{time.time() - t_phase:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    numbers = {"arch": cfg.name, "layers": cfg.n_layers, "parameters": n_params,
+               "step_ms": step_ms, "mesh_overhead": overhead,
+               "peak_gb": {k: r["peak_gb"] for k, r in runs.items()},
+               "losses": [h["loss"] for h in hist["mesh"]],
+               "dp_arch": dcfg.name, "dp_layers": dcfg.n_layers, "dp_parameters": dp_params,
+               "dp_ms": dp_ms, "dp_peak_gb": peak_dp, "dp_wire_bytes": res["wire_bytes"],
+               "dp_float32_bytes": res["float32_bytes"]}
+    return launches, numbers
+
+
 def free_port() -> int:
     """A free TCP port on the loopback address."""
     import socket
@@ -3064,6 +3280,15 @@ def main(parent: bool = False) -> int:
         for r in rows:
             r["launches_by_path"]["train"] = train_launches[r["name"]]
         say("phase train: numbers " + json.dumps(train_numbers))
+
+    # 18. the device mesh on one card, after phase train has freed its model
+    if parent:
+        say("phase mesh: skipped (--parent: the package predates the mesh)")
+    else:
+        mesh_launches, mesh_numbers = mesh_phase(smi, dev)
+        for r in rows:
+            r["launches_by_path"]["mesh"] = mesh_launches[r["name"]]
+        say("phase mesh: numbers " + json.dumps(mesh_numbers))
     say(f"phase done in {time.time() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3080,5 +3305,6 @@ if __name__ == "__main__":
                     help="skip the phases an older package cannot pass: compaction, the "
                          "flush check of the float ops, K7's non-finite tables, the "
                          "underflow rows, execute, the service, snapshots, wide rows, "
-                         "the distributed index, the LM serving path and LM training")
+                         "the distributed index, the LM serving path, LM training and "
+                         "the mesh")
     sys.exit(main(ap.parse_args().parent))

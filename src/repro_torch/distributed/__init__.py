@@ -1,5 +1,6 @@
-"""The port's distributed index service (the LM scaffold's mesh rules and
-gradient compression of :mod:`repro.distributed` are not ported yet)."""
+"""The port of :mod:`repro.distributed`: the distributed index service,
+the mesh's logical sharding rules (``sharding``) and int8 gradient
+compression for data parallelism (``compression``)."""
 from .index_service import (
     DistributedStringIndex,
     RoutedLookup,

@@ -1,18 +1,27 @@
-"""Step-function builders shared by the train and serve launchers: the port
-of :mod:`repro.launch.steps`.
+"""Step-function builders + input shardings shared by the train and serve
+launchers: the port of :mod:`repro.launch.steps`.
 
 The model holds its parameters (``LMModel`` is an ``nn.Module``), so the
 steps take no ``params``: ``train_step(opt_state, batch)`` updates the
-model's parameters in place and returns ``(opt_state, metrics)``.  The
-sharding helpers (``param_shardings``, ``batch_shardings``,
-``cache_shardings``, ``opt_state_shardings``, ``abstract_opt_state``) come
-with the mesh in the multi-card slice.
+model's parameters in place and returns ``(opt_state, metrics)``.
+
+The sharding helpers return DTensor placements on the active mesh
+(``distributed/sharding``) wherever the reference returns a
+``NamedSharding``, and ``None`` without a mesh.  ``place`` lays a model's
+parameters out by ``param_shardings`` (``train_loop.train`` does so under a
+mesh); a train step of a placed model takes the global batch and runs this
+rank's rows of it.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn as nn
+from torch.distributed.tensor import DTensor
 
-from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.configs.base import ArchConfig, ShapeSpec, input_specs
+from repro_torch.distributed.sharding import (
+    axis_size, distribute, gather, get_mesh, local_chunk, placements, rules)
+from repro_torch.distributed.sharding import spec as logical_spec
 from repro_torch.models import LMModel
 from repro_torch.train import _tree
 from repro_torch.train import optimizer as opt_mod
@@ -50,7 +59,11 @@ def make_train_step(model: LMModel, opt_cfg: opt_mod.AdamWConfig, accum: int = 1
     batch's rows cut into ``accum`` consecutive groups).  The gradients are
     summed in the reference's order, ``0 + g1 + g2 ...``, in the parameters'
     ``.grad`` buffers, then divided by ``accum``; the metrics are the
-    microbatches' mean, then the optimizer's."""
+    microbatches' mean, then the optimizer's.  Under a mesh each rank runs
+    its rows of every microbatch (``local_rows``) and the step is the global
+    one: the loss over every rank's tokens, the gradients summed over the
+    batch axes into the shards (``sharding.gather``), the norm over every
+    shard."""
     if grad_dtype != torch.float32:
         raise ValueError(f"grad_dtype {grad_dtype}: the port accumulates in the float32 "
                          "parameters' .grad (bf16 parameters come with the multi-card slice)")
@@ -61,7 +74,7 @@ def make_train_step(model: LMModel, opt_cfg: opt_mod.AdamWConfig, accum: int = 1
         for i in range(accum):
             mb = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, metrics = model.loss(mb)
+            loss, metrics = model.loss(local_rows(mb))
             loss.backward()
             ms.append(metrics)
         metrics = {k: torch.stack([m[k] for m in ms]).mean(0) for k in ms[0]}
@@ -89,3 +102,126 @@ def make_decode_step(model: LMModel):
         return model.decode_step(cache, token, pos)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# shardings
+# ---------------------------------------------------------------------------
+
+def _ns(entries):
+    return placements(entries) if get_mesh() is not None else None
+
+
+def _batch_axes_for(batch_size: int):
+    """Batch mesh axes actually usable for this batch size (None if B too small)."""
+    r = rules()
+    if r is None or not r.batch:
+        return None
+    n = 1
+    for a in r.batch:
+        n *= axis_size(a)
+    if batch_size % n == 0:
+        return r.batch
+    # try the 'data' axis alone (multi-pod with small batch)
+    if "data" in r.batch and batch_size % axis_size("data") == 0:
+        return ("data",)
+    return None
+
+
+def batch_shardings(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    b = _batch_axes_for(shape.global_batch)
+    out = {}
+    for k, v in input_specs(cfg, shape).items():
+        if k == "cache":
+            out[k] = cache_shardings(cfg, shape.global_batch)
+        elif k == "pos":
+            out[k] = _ns(())
+        elif k == "token":
+            out[k] = _ns((b,))
+        else:
+            out[k] = _ns((b,) + (None,) * (v.dim() - 1))
+    return out
+
+
+def cache_shardings(cfg: ArchConfig, batch_size: int) -> dict:
+    """KV/SSM cache shardings.  When the batch can't cover the data axes
+    (long_500k has B=1), the KV *window* axis is sequence-sharded over them
+    instead."""
+    st = logical_spec("tp")
+    t = st[0] if len(st) else None
+    b = _batch_axes_for(batch_size)
+    r = rules()
+    seq = None if b is not None else (r.batch if r and r.batch else None)
+    out = {}
+    if cfg.has_attn:
+        out["k"] = _ns((None, b, seq, t, None))
+        out["v"] = _ns((None, b, seq, t, None))
+        if cfg.kv_cache_dtype == "int8":
+            out["k_scale"] = _ns((None, b, seq, t))
+            out["v_scale"] = _ns((None, b, seq, t))
+    if cfg.has_mamba:
+        out["conv"] = _ns((None, b, None, t))
+        out["ssm"] = _ns((None, b, t, None))
+    return out
+
+
+def param_shardings(model: LMModel) -> dict:
+    specs = model.param_specs()
+    out = {k: _ns(v) for k, v in specs.items() if k != "blocks"}
+    out["blocks"] = {k: _ns(v) for k, v in specs["blocks"].items()}
+    return out
+
+
+def opt_state_shardings(model: LMModel) -> dict:
+    ps = param_shardings(model)
+    return {"m": ps, "v": ps, "step": _ns(())}
+
+
+def abstract_opt_state(model: LMModel, opt_cfg: opt_mod.AdamWConfig) -> dict:
+    """The optimizer state's shapes and dtypes as meta tensors."""
+    z = _tree.map_with_path(
+        lambda _, s: torch.empty(s.shape, dtype=opt_cfg.state_dtype, device="meta"),
+        model.abstract_params())
+    return {"m": z, "v": _tree.map_with_path(lambda _, s: s, z),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def local_rows(batch: dict) -> dict:
+    """This rank's rows of ``batch`` over the mesh's batch axes, split as
+    the reference's batch sharding splits them; ``batch`` itself without a
+    mesh."""
+    r = rules()
+    if r is None or not r.batch:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if _batch_axes_for(v.shape[0]) != r.batch:
+            raise ValueError(f"{k} has {v.shape[0]} rows, which the batch axes {r.batch} "
+                             "do not divide")
+        out[k] = local_chunk(v, placements((r.batch,)))
+    return out
+
+
+@torch.no_grad()
+def place(model: LMModel) -> None:
+    """Lay the model's parameters out on the active mesh by
+    ``param_shardings``: each becomes a DTensor of which this rank keeps its
+    own shards (taken from the whole parameter every rank holds, with no
+    communication)."""
+    sh = param_shardings(model)
+    for name, p in list(model.top.items()):
+        model.top[name] = nn.Parameter(distribute(gather(p.detach()), sh[name]))
+    for name in model.layer_defs():
+        key = name.replace(".", "__")
+        p = model.blocks[key].detach()
+        model.blocks[key] = nn.Parameter(distribute(gather(p), sh["blocks"][name]))
+
+
+@torch.no_grad()
+def unplace(model: LMModel) -> None:
+    """The model's parameters whole again on every rank (a collective where
+    they are placed); a model that is not placed is left as it is."""
+    for pd in (model.top, model.blocks):
+        for name, p in list(pd.items()):
+            if isinstance(p, DTensor):
+                pd[name] = nn.Parameter(p.full_tensor())

@@ -6,18 +6,23 @@ initialised from a generator seeded 0, with float32 AdamW moments and a
 warmup of a tenth of the steps, as the reference's launcher.  ``--reduced``
 (the default) runs the config's tiny smoke-test variant and
 ``--no-reduced`` the published config; the reference's flag cannot be
-cleared, so it always trains the reduced one.  ``--use-mesh`` is refused
-until the mesh is ported (the multi-card slice).
+cleared, so it always trains the reduced one.  ``--use-mesh`` trains under a
+``("data", "model")`` mesh over the ranks of the process group that is up
+(``launch/mesh.make_host_mesh``; with none, a one-rank group on
+``--device``, which the launcher ends when it is done).
 """
 from __future__ import annotations
 
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+from repro_torch.distributed.sharding import set_mesh
 from repro_torch.kernels._build import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import LMModel
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_loop import TrainConfig, train
@@ -37,17 +42,27 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--use-mesh", action="store_true",
-                    help="build a mesh over local devices (not ported yet: refused)")
+                    help="build a host mesh over the ranks of the process group")
     ap.add_argument("--device", default="cuda", help="where the model trains")
     args = ap.parse_args(argv)
-    if args.use_mesh:
-        ap.error("--use-mesh: the device mesh is not ported yet (the multi-card slice); "
-                 "run without it to train on one device")
 
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
+    if not args.use_mesh:
+        return _train(args, cfg, dev)
+    started = not dist.is_initialized()
+    set_mesh(make_host_mesh(device=dev))
+    try:
+        return _train(args, cfg, dev)
+    finally:
+        set_mesh(None)
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, dev) -> dict:
     model = LMModel(cfg, device=dev)
     pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=args.seq,
                                         global_batch=args.batch))

@@ -23,15 +23,21 @@ which run as ``aten.bmm``.  The ``dots`` remat policy
 outputs, as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
 saves the reference's.
 
-Not here yet: the expert-parallel MoE over a mesh (with
-``distributed/sharding``).
+With a mesh, ``moe_apply`` is the reference's expert-parallel ``shard_map``
+body in explicit collectives over the mesh's process groups
+(``distributed/sharding``).
 """
 from __future__ import annotations
 
 import math
+import os
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+
+from repro_torch.distributed import sharding
 
 ACT_DTYPE = torch.bfloat16
 NEG_INF = -1e30     # the reference's mask value
@@ -305,6 +311,7 @@ def mlp_apply(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     h = _act(a, act, x.dtype)
     if act == "swiglu":
         h = h * (x @ p["wi1"])
+    h = sharding.constrain(h, "batch", None, "tp")
     return h @ p["wo"]
 
 
@@ -330,9 +337,17 @@ def _top_k(x: torch.Tensor, k: int):
 
 
 def _moe_dispatch_compute(xt, logits, e0: int, E_loc: int, p_wi0, p_wi1, p_wo, *,
-                          top_k: int, capacity_factor: float, act: str):
+                          top_k: int, capacity_factor: float, act: str,
+                          psum_axes: Sequence[str] = ()):
     """Route xt (T,d) to the E_loc local experts [e0, e0+E_loc); returns (T,d)
-    partial outputs (zeros for tokens whose experts live elsewhere)."""
+    partial outputs (zeros for tokens whose experts live elsewhere).
+
+    ``psum_axes`` is the weight-stationary variant (the reference's
+    ``_moe_dispatch_compute_fsharded``): the expert matrices are this rank's
+    f shards, and the (E_loc, C, d) partial outputs are summed over those
+    mesh axes.  Those are the batch axes too, so each rank's slots hold other
+    tokens, and the sum mixes them: the reference's, reproduced (ROADMAP
+    Queue 3 item 15)."""
     T, d = xt.shape
     E = logits.shape[1]
     dev = xt.device
@@ -358,11 +373,41 @@ def _moe_dispatch_compute(xt, logits, e0: int, E_loc: int, p_wi0, p_wi1, p_wo, *
     valid[so[keep], pos[keep]] = True
     xe = xt[ids] * valid[..., None].to(xt.dtype)
     ye = _moe_expert_compute(xe, p_wi0, p_wi1, p_wo, act, xt.dtype)
+    if psum_axes:
+        ye = sharding.all_reduce(ye, psum_axes)
     # the reference's gather clamps out-of-range indices; those rows are
     # multiplied by keep = 0
     back = ye[so.clamp(max=E_loc - 1), pos.clamp(max=C - 1)] \
         * (ws * keep)[:, None].to(xt.dtype)
     return torch.zeros((T, d), dtype=xt.dtype, device=dev).index_add_(0, ts, back)
+
+
+def _moe_mode_auto(T_local: int, top_k: int, E: int, f: int, cf: float) -> str:
+    """ws vs ag by napkin math (§Perf H1): per layer, ws moves ~2 psums of the
+    (E_loc, C, d) partials (fwd+bwd) while ag moves the n_mats·(E_loc,d,f)
+    expert weights.  Per-expert: ws ∝ 4·C·d·B_act, ag ∝ 3·d·f·B_w —
+    choose ws when C < ~0.75·f."""
+    forced = os.environ.get("REPRO_MOE_MODE")
+    if forced in ("ws", "ag"):
+        return forced
+    C = max(cf * T_local * top_k / E, 4)
+    return "ws" if C < 0.75 * f else "ag"
+
+
+def _as_dtensor(w: torch.Tensor, mesh) -> DTensor:
+    """``w`` as a DTensor on ``mesh``: a plain tensor is every rank's whole
+    copy."""
+    if isinstance(w, DTensor):
+        return w
+    return DTensor.from_local(w, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _local_experts(w: torch.Tensor, mesh, logical, sum_axes: Sequence[str] = ()):
+    """This rank's piece of an expert matrix laid out by ``logical``; its
+    gradient goes back summed over the mesh axes ``sum_axes``."""
+    place = sharding.placements(sharding.spec(*logical), mesh)
+    grad = [Partial() if a in sum_axes else pl for a, pl in zip(mesh.mesh_dim_names, place)]
+    return _as_dtensor(w, mesh).redistribute(mesh, place).to_local(grad_placements=grad)
 
 
 def moe_apply(
@@ -372,15 +417,67 @@ def moe_apply(
     top_k: int,
     capacity_factor: float,
     act: str,
+    mode: str = "auto",  # auto | ag (weight all-gather) | ws (weight stationary)
 ) -> torch.Tensor:
-    """Top-k MoE: one local dispatch over all experts (the reference's path
-    without a mesh)."""
+    """Top-k MoE.  Without a mesh: single local dispatch over all experts.
+
+    With a mesh: **expert parallelism**, the reference's ``shard_map`` body
+    on each rank.  ``x`` is this rank's rows (replicated across the
+    ``model`` axis); each model column routes its tokens to its E/tp
+    resident experts with a *local* gather, its capacity from its own token
+    count, computes, and the per-column partial token outputs are summed
+    over ``model``.  The weights are DTensors in the parameters' layout (a
+    plain tensor counts as every rank's whole copy).
+
+    Two treatments of the FSDP-sharded expert-weight dim (§Perf H1):
+      * ``ag`` — all-gather weights over the fsdp axes (ZeRO-3; best when
+        tokens ≫ weights, i.e. train/prefill), gradients reduce-scattered,
+      * ``ws`` — keep weights f-sharded, sum the small (E_loc, C, d)
+        partials over the fsdp axes (best for decode); those axes are the
+        batch axes, so at data > 1 this mixes the ranks' tokens, as the
+        reference does.
+    ``auto`` picks by the local token count (``REPRO_MOE_MODE`` forces one).
+    The collectives' gradients are the reference's transposes
+    (``sharding.all_reduce``).
+    """
     B, S, d = x.shape
     E = p["router"].shape[1]
+    mesh = sharding.get_mesh()
     wi1 = p.get("wi1", p["wi0"])  # unused when act != swiglu
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        xt = x.reshape(B * S, d)
+        logits = (xt @ p["router"]).float()
+        out = _moe_dispatch_compute(
+            xt, logits, 0, E, p["wi0"], wi1, p["wo"],
+            top_k=top_k, capacity_factor=capacity_factor, act=act)
+        return out.reshape(B, S, d)
+
+    fsdp = sharding.rules().fsdp
+    E_loc = E // sharding.axis_size("model", mesh)
+    if mode == "auto":
+        mode = _moe_mode_auto(B * S, top_k, E, p["wi0"].shape[-1], capacity_factor)
+    # x is replicated over model: its cotangent sums the columns' partials
+    x = sharding.all_reduce(x, ("model",), forward=False)
+    # every rank's logits feed its own experts: the router's gradient sums all
+    router = sharding.gather(_as_dtensor(p["router"], mesh), mesh.mesh_dim_names)
     xt = x.reshape(B * S, d)
-    logits = (xt @ p["router"]).float()
-    out = _moe_dispatch_compute(
-        xt, logits, 0, E, p["wi0"], wi1, p["wo"],
-        top_k=top_k, capacity_factor=capacity_factor, act=act)
+    logits = (xt @ router).float()
+    e0 = sharding.axis_index("model", mesh) * E_loc
+    if mode == "ws":
+        # weights stay sharded: E over model, f over the fsdp axes
+        wi, wo = ("tp", None, "fsdp"), ("tp", "fsdp", None)
+        out = _moe_dispatch_compute(
+            xt, logits, e0, E_loc, _local_experts(p["wi0"], mesh, wi),
+            _local_experts(wi1, mesh, wi), _local_experts(p["wo"], mesh, wo),
+            top_k=top_k, capacity_factor=capacity_factor, act=act, psum_axes=fsdp)
+    else:
+        # the fsdp shards gathered whole; their gradients summed over those axes
+        wi0_f, wi1_f, wo_f = (_local_experts(w, mesh, ("tp", None, None), fsdp)
+                              for w in (p["wi0"], wi1, p["wo"]))
+        out = _moe_dispatch_compute(
+            xt, logits, e0, E_loc, wi0_f, wi1_f, wo_f,
+            top_k=top_k, capacity_factor=capacity_factor, act=act)
+    # each column's partial summed over model; every column holds the
+    # output's whole cotangent already
+    out = sharding.all_reduce(out, ("model",), backward=False)
     return out.reshape(B, S, d)

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import constrain
+
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
@@ -74,6 +76,7 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg, h0=None, conv_state=None,
     di, N, dtr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
     xz = x @ p["in_proj"]
     xs, z = torch.chunk(xz, 2, dim=-1)
+    xs = constrain(xs, "batch", None, "tp")
     if conv_state is not None:
         xs_ext = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
         conv_full = _causal_conv(xs_ext, p["conv_w"], p["conv_b"])[:, -S:]

@@ -26,8 +26,16 @@ recomputes the whole block; ``dots`` saves the weight products, the
 into its slice of that buffer, as the reference's scan writes a layer's
 gradient into its slice: no per-layer gradient of the whole stack.
 
-Not yet: the mesh (``param_specs``, ``constrain``), with the multi-card
-slice.
+Under a mesh (``distributed/sharding.set_mesh``) the parameters are
+DTensors laid out by ``param_specs`` (``launch/steps.place``), each rank
+holding its shards, and every entry point takes this rank's rows of the
+batch.  A layer's weights are gathered whole in bf16 as it runs, their
+gradients reduce-scattered back (``sharding.gather``): the reference's
+all-gather of FSDP shards, applied to every dense weight, with the dense
+activations replicated over ``model`` (the ``"tp"`` constraints are no-ops
+on plain tensors).  The experts go through ``moe_apply``'s expert-parallel
+path.  The loss is the masked sum of every rank's tokens over the global
+token count, as the reference's GSPMD step computes it.
 """
 from __future__ import annotations
 
@@ -41,7 +49,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import (constrain, gather, get_mesh, mesh_scope, psum,
+                                              rules)
+from repro_torch.distributed.sharding import spec as logical_spec
 from repro_torch.kernels._build import resolve_device
 
 from .layers import (
@@ -73,12 +86,37 @@ def _save_weight_products():
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
     init: str = "normal"  # normal | zeros | a_log | dt_bias | ones
 
 
 def _key(name: str) -> str:
     """The module's name for the reference's parameter ``name``."""
     return name.replace(".", "__")
+
+
+def _select(stacked: torch.Tensor, l: int) -> torch.Tensor:
+    """Layer ``l`` of a stacked parameter: a view, or for a DTensor (whose
+    layer dim is never sharded) the DTensor of its local slice ``l``."""
+    if not isinstance(stacked, DTensor):
+        return stacked[l]
+    return _layer_dtensor(stacked, stacked.to_local()[l])
+
+
+def _layer_dtensor(stacked: DTensor, piece: torch.Tensor) -> DTensor:
+    """``piece``, a rank's slice of one layer of ``stacked``, as the DTensor
+    of that layer (the stacked placements one dim down)."""
+    place = [type(p)(p.dim - 1) if p.is_shard() else p for p in stacked.placements]
+    shape = stacked.shape[1:]
+    return DTensor.from_local(piece, stacked.device_mesh, place, run_check=False,
+                              shape=shape, stride=stacked.stride()[1:])
+
+
+def _gather_dense(p: dict) -> dict:
+    """A layer's (cast) parameters with every dense weight whole
+    (``sharding.gather``); the MoE's stay as they are, for ``moe_apply``'s
+    expert-parallel path."""
+    return {k: v if k.startswith("moe.") else gather(v) for k, v in p.items()}
 
 
 class LMModel(nn.Module):
@@ -112,59 +150,62 @@ class LMModel(nn.Module):
     def layer_defs(self) -> Dict[str, ParamDef]:
         c = self.cfg
         d, f = c.d_model, c.d_ff
-        defs: Dict[str, ParamDef] = {"ln1": ParamDef((d,), "zeros")}
+        defs: Dict[str, ParamDef] = {"ln1": ParamDef((d,), (None,), "zeros")}
         if c.has_attn:
             H, KV, hd = c.n_heads_padded, c.n_kv_padded, c.hd
-            defs["attn.wq"] = ParamDef((d, H * hd))
-            defs["attn.wk"] = ParamDef((d, KV * hd))
-            defs["attn.wv"] = ParamDef((d, KV * hd))
-            defs["attn.wo"] = ParamDef((H * hd, d))
+            defs["attn.wq"] = ParamDef((d, H * hd), ("fsdp", "tp"))
+            defs["attn.wk"] = ParamDef((d, KV * hd), ("fsdp", "tp"))
+            defs["attn.wv"] = ParamDef((d, KV * hd), ("fsdp", "tp"))
+            defs["attn.wo"] = ParamDef((H * hd, d), ("tp", "fsdp"))
         if c.has_mamba:
             di, N, dtr = c.d_inner, c.ssm_state, c.dt_rank
-            defs["mamba.in_proj"] = ParamDef((d, 2 * di))
-            defs["mamba.conv_w"] = ParamDef((c.ssm_conv, di))
-            defs["mamba.conv_b"] = ParamDef((di,), "zeros")
-            defs["mamba.x_proj"] = ParamDef((di, dtr + 2 * N))
-            defs["mamba.dt_proj"] = ParamDef((dtr, di))
-            defs["mamba.dt_bias"] = ParamDef((di,), "dt_bias")
-            defs["mamba.A_log"] = ParamDef((di, N), "a_log")
-            defs["mamba.D"] = ParamDef((di,), "ones")
-            defs["mamba.out_proj"] = ParamDef((di, d))
+            defs["mamba.in_proj"] = ParamDef((d, 2 * di), ("fsdp", "tp"))
+            defs["mamba.conv_w"] = ParamDef((c.ssm_conv, di), (None, "tp"))
+            defs["mamba.conv_b"] = ParamDef((di,), ("tp",), "zeros")
+            defs["mamba.x_proj"] = ParamDef((di, dtr + 2 * N), ("tp", None))
+            defs["mamba.dt_proj"] = ParamDef((dtr, di), (None, "tp"))
+            defs["mamba.dt_bias"] = ParamDef((di,), ("tp",), "dt_bias")
+            defs["mamba.A_log"] = ParamDef((di, N), ("tp", None), "a_log")
+            defs["mamba.D"] = ParamDef((di,), ("tp",), "ones")
+            defs["mamba.out_proj"] = ParamDef((di, d), ("tp", "fsdp"))
         if c.has_moe:
             E = c.n_experts
-            defs["ln2"] = ParamDef((d,), "zeros")
-            defs["moe.router"] = ParamDef((d, E))
-            defs["moe.wi0"] = ParamDef((E, d, f))
+            defs["ln2"] = ParamDef((d,), (None,), "zeros")
+            # expert weights live in the weight-stationary layout (f over fsdp):
+            # decode/prefill psum small activation partials instead of
+            # all-gathering expert matrices every step.
+            defs["moe.router"] = ParamDef((d, E), ("fsdp", None))
+            defs["moe.wi0"] = ParamDef((E, d, f), ("tp", None, "fsdp"))
             if c.mlp_act == "swiglu":
-                defs["moe.wi1"] = ParamDef((E, d, f))
-            defs["moe.wo"] = ParamDef((E, f, d))
+                defs["moe.wi1"] = ParamDef((E, d, f), ("tp", None, "fsdp"))
+            defs["moe.wo"] = ParamDef((E, f, d), ("tp", "fsdp", None))
             if c.moe_dense_ff:
                 fd = c.moe_dense_ff
-                defs["dense.wi0"] = ParamDef((d, fd))
+                defs["dense.wi0"] = ParamDef((d, fd), ("fsdp", "tp"))
                 if c.mlp_act == "swiglu":
-                    defs["dense.wi1"] = ParamDef((d, fd))
-                defs["dense.wo"] = ParamDef((fd, d))
+                    defs["dense.wi1"] = ParamDef((d, fd), ("fsdp", "tp"))
+                defs["dense.wo"] = ParamDef((fd, d), ("tp", "fsdp"))
         elif f:
-            defs["ln2"] = ParamDef((d,), "zeros")
-            defs["mlp.wi0"] = ParamDef((d, f))
+            defs["ln2"] = ParamDef((d,), (None,), "zeros")
+            defs["mlp.wi0"] = ParamDef((d, f), ("fsdp", "tp"))
             if c.mlp_act == "swiglu":
-                defs["mlp.wi1"] = ParamDef((d, f))
-            defs["mlp.wo"] = ParamDef((f, d))
+                defs["mlp.wi1"] = ParamDef((d, f), ("fsdp", "tp"))
+            defs["mlp.wo"] = ParamDef((f, d), ("tp", "fsdp"))
         if c.family == "hybrid":
-            defs["fuse_a"] = ParamDef((d,), "zeros")
-            defs["fuse_m"] = ParamDef((d,), "zeros")
+            defs["fuse_a"] = ParamDef((d,), (None,), "zeros")
+            defs["fuse_m"] = ParamDef((d,), (None,), "zeros")
         return defs
 
     def top_defs(self) -> Dict[str, ParamDef]:
         c = self.cfg
         d = c.d_model
         defs = {
-            "embed": ParamDef((c.vocab_padded, d)),
-            "final_ln": ParamDef((d,), "zeros"),
-            "lm_head": ParamDef((d, c.vocab_padded)),
+            "embed": ParamDef((c.vocab_padded, d), ("tp", "fsdp")),
+            "final_ln": ParamDef((d,), (None,), "zeros"),
+            "lm_head": ParamDef((d, c.vocab_padded), ("fsdp", "tp")),
         }
         if c.frontend != "none":
-            defs["frontend_proj"] = ParamDef((c.frontend_dim, d))
+            defs["frontend_proj"] = ParamDef((c.frontend_dim, d), (None, "fsdp"))
         return defs
 
     def params(self) -> Dict[str, torch.Tensor]:
@@ -175,8 +216,9 @@ class LMModel(nn.Module):
         return out
 
     def layer(self, l: int) -> Dict[str, torch.Tensor]:
-        """Layer ``l``'s parameters under the reference's names (views)."""
-        return {n: self.blocks[_key(n)][l] for n in self.layer_defs()}
+        """Layer ``l``'s parameters under the reference's names (views; under
+        a mesh, DTensors of this rank's slices)."""
+        return {n: _select(self.blocks[_key(n)], l) for n in self.layer_defs()}
 
     def param_tree(self) -> dict:
         """The parameters in the reference's tree: the top ones, and the
@@ -195,21 +237,34 @@ class LMModel(nn.Module):
                          for n, pd in self.layer_defs().items()}
         return out
 
+    def param_specs(self) -> dict:
+        """The parameter tree's PartitionSpec entries on the active mesh
+        (``()`` each without one); a stacked parameter's layer dim is never
+        sharded."""
+        out = {n: logical_spec(*pd.logical) for n, pd in self.top_defs().items()}
+        out["blocks"] = {n: logical_spec(None, *pd.logical)
+                         for n, pd in self.layer_defs().items()}
+        return out
+
     def _grad_layer(self, l: int) -> Dict[str, torch.Tensor]:
         """Layer ``l``'s parameters for a pass that records gradients.  Where
         the stacked parameter holds a ``.grad`` buffer, a leaf view of layer
         ``l`` whose ``.grad`` is that buffer's slice ``l``: autograd adds the
-        layer's gradient into the slice in place.  Otherwise the plain view
-        (autograd then builds a gradient of the whole stack per layer)."""
+        layer's gradient into the slice in place (under a mesh, the local
+        slices: the leaf is this rank's piece of the layer).  Otherwise the
+        plain view (autograd then builds a gradient of the whole stack per
+        layer)."""
         out = {}
         for n in self.layer_defs():
             stacked = self.blocks[_key(n)]
             if stacked.grad is None or not torch.is_grad_enabled():
-                out[n] = stacked[l]
-            else:
-                leaf = stacked.detach()[l].requires_grad_()
-                leaf.grad = stacked.grad[l]
-                out[n] = leaf
+                out[n] = _select(stacked, l)
+                continue
+            placed = isinstance(stacked, DTensor)
+            local = stacked.to_local() if placed else stacked
+            leaf = local.detach()[l].requires_grad_()
+            leaf.grad = (stacked.grad.to_local() if placed else stacked.grad)[l]
+            out[n] = _layer_dtensor(stacked, leaf) if placed else leaf
         return out
 
     # ------------------------------------------------------------------
@@ -248,9 +303,12 @@ class LMModel(nn.Module):
         q = (h @ p["attn.wq"]).reshape(B, S, H, hd)
         k = (h @ p["attn.wk"]).reshape(B, S, KV, hd)
         v = (h @ p["attn.wv"]).reshape(B, S, KV, hd)
+        q = constrain(q, "batch", None, "tp", None)
+        k = constrain(k, "batch", None, "tp", None)
         q = apply_rope(q, positions, c.rope_variant)
         k = apply_rope(k, positions, c.rope_variant)
         o = flash_attention(q, k, v, causal=c.causal, window=c.swa_window)
+        o = constrain(o, "batch", None, "tp", None)
         out = o.reshape(B, S, H * hd) @ p["attn.wo"]
         if not return_kv:
             return out
@@ -276,11 +334,12 @@ class LMModel(nn.Module):
                           capacity_factor=capacity_factor, act=c.mlp_act)
             if c.moe_dense_ff:
                 y = y + mlp_apply(h2, sub_params(p, "dense"), c.mlp_act)
-            return x + y
+            return constrain(x + y, "batch", None, None)
         if c.d_ff:
             h2 = rms_norm(x, p["ln2"], c.norm_eps)
-            return x + mlp_apply(h2, sub_params(p, "mlp"), c.mlp_act)
-        return x
+            return constrain(x + mlp_apply(h2, sub_params(p, "mlp"), c.mlp_act),
+                             "batch", None, None)
+        return constrain(x, "batch", None, None)
 
     def _gates(self, p, dtype):
         ga = torch.sigmoid(p["fuse_a"].float()).to(dtype)
@@ -291,7 +350,7 @@ class LMModel(nn.Module):
         """One layer over the whole sequence: (x, the decode state it leaves)
         where ``keep_state`` (prefill), else (x, None)."""
         c = self.cfg
-        p = cast_tree(p)
+        p = _gather_dense(cast_tree(p))
         h = rms_norm(x, p["ln1"], c.norm_eps)
         state = {}
         if c.has_attn:
@@ -308,7 +367,8 @@ class LMModel(nn.Module):
             mix = a * ga + m * gm
         else:
             mix = a if c.has_attn else m
-        x = self._ffn(p, x + mix, c.capacity_factor)
+        x = constrain(x + mix, "batch", None, None)
+        x = self._ffn(p, x, c.capacity_factor)
         return x, (state if keep_state else None)
 
     # ------------------------------------------------------------------
@@ -319,29 +379,30 @@ class LMModel(nn.Module):
         c = self.cfg
         if c.frontend == "frame":
             x = torch.einsum("bsf,fd->bsd", batch["frames"].to(ACT_DTYPE),
-                             self.top["frontend_proj"].to(ACT_DTYPE))
+                             gather(self.top["frontend_proj"].to(ACT_DTYPE)))
             B, S = x.shape[:2]
             pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-            return x, pos, 0
+            return constrain(x, "batch", None, None), pos, 0
         # the whole table cast, then gathered, as the reference does: the
         # backward sums a repeated token's gradients in bf16
-        emb = self.top["embed"].to(ACT_DTYPE)[batch["tokens"].long()]
+        emb = gather(self.top["embed"].to(ACT_DTYPE))[batch["tokens"].long()]
         n_prefix = 0
         if c.frontend == "patch" and "patches" in batch:
             pe = torch.einsum("bpf,fd->bpd", batch["patches"].to(ACT_DTYPE),
-                              self.top["frontend_proj"].to(ACT_DTYPE))
+                              gather(self.top["frontend_proj"].to(ACT_DTYPE)))
             emb = torch.cat([pe, emb], dim=1)
             n_prefix = pe.shape[1]
         B, S = emb.shape[:2]
         pos = torch.arange(S, dtype=torch.int32, device=emb.device)[None].expand(B, S)
-        return emb, pos, n_prefix
+        return constrain(emb, "batch", None, None), pos, n_prefix
 
     def _head(self, x) -> torch.Tensor:
         """float32 logits: bf16 activations against the bf16-cast head,
         multiplied in float32 (the reference's ``preferred_element_type``)."""
-        x = rms_norm(x, self.top["final_ln"], self.cfg.norm_eps)
-        return torch.einsum("bsd,dv->bsv", x.float(),
-                            self.top["lm_head"].to(x.dtype).float())
+        x = rms_norm(x, gather(self.top["final_ln"]), self.cfg.norm_eps)
+        logits = torch.einsum("bsd,dv->bsv", x.float(),
+                              gather(self.top["lm_head"].to(x.dtype)).float())
+        return constrain(logits, "batch", None, "tp")
 
     # ------------------------------------------------------------------
     # forward / prefill / decode
@@ -351,9 +412,12 @@ class LMModel(nn.Module):
         recorded, each block runs under ``torch.utils.checkpoint``, its
         policy read from ``REPRO_REMAT_POLICY`` as the reference reads it."""
         x, positions, n_prefix = self._embed_inputs(batch)
+        mesh = get_mesh()
 
         def block(p, x):
-            return self._block(p, x, positions)[0]
+            # a checkpointed block recomputes on autograd's thread
+            with mesh_scope(mesh):
+                return self._block(p, x, positions)[0]
 
         remat = remat and torch.is_grad_enabled()
         policy = {}
@@ -371,7 +435,12 @@ class LMModel(nn.Module):
         """Mean token cross-entropy over the labels ``>= 0`` (float32
         ``log_softmax`` over ``vocab_padded``, labels clipped into it):
         (loss, {"loss", "tokens"}).  ``remat`` as in ``forward`` (the
-        reference's loss always remats)."""
+        reference's loss always remats).
+
+        Under a mesh ``batch`` is this rank's rows: the loss returned is their
+        masked sum over the token count of every rank's rows, so that the
+        ranks' losses sum to the reference's, and the metrics are the global
+        loss and count."""
         logits = self.forward(batch, remat=remat)
         labels = batch["labels"]
         V = logits.shape[-1]
@@ -379,8 +448,11 @@ class LMModel(nn.Module):
         safe = torch.clamp(labels.long(), 0, V - 1)
         ll = torch.gather(logp, -1, safe[..., None])[..., 0]
         mask = (labels >= 0).float()
-        loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-        return loss, {"loss": loss.detach(), "tokens": mask.sum()}
+        r = rules()
+        batch_axes = r.batch if r is not None else ()
+        tokens = psum(mask.sum(), batch_axes)
+        loss = -(ll * mask).sum() / torch.clamp(tokens, min=1.0)
+        return loss, {"loss": psum(loss.detach(), batch_axes), "tokens": tokens}
 
     @torch.no_grad()
     def prefill(self, batch, max_len: Optional[int] = None) -> Tuple[dict, torch.Tensor]:
@@ -405,9 +477,12 @@ class LMModel(nn.Module):
                 grow = (0, 0, 0, 0, 0, max_len - kc.shape[2])
                 kc, vc = F.pad(kc, grow), F.pad(vc, grow)
             if c.kv_cache_dtype == "int8":
-                kc, cache["k_scale"] = quantize_kv(kc)
-                vc, cache["v_scale"] = quantize_kv(vc)
-            cache["k"], cache["v"] = kc, vc
+                kc, ks = quantize_kv(kc)
+                vc, vs = quantize_kv(vc)
+                cache["k_scale"] = constrain(ks, None, "batch", None, "tp")
+                cache["v_scale"] = constrain(vs, None, "batch", None, "tp")
+            cache["k"] = constrain(kc, None, "batch", None, "tp", None)
+            cache["v"] = constrain(vc, None, "batch", None, "tp", None)
         if c.has_mamba:
             cache["ssm"] = torch.stack([s["ssm"] for s in states])
             cache["conv"] = torch.stack([s["conv"] for s in states])
@@ -420,12 +495,13 @@ class LMModel(nn.Module):
         ``cache`` in place and returns (cache, logits (B, vocab_padded))."""
         c = self.cfg
         pos = int(pos)
-        x = self.top["embed"][token.long()].to(ACT_DTYPE)  # (B, d)
+        x = gather(self.top["embed"])[token.long()].to(ACT_DTYPE)  # (B, d)
+        x = constrain(x, "batch", None)
         B = x.shape[0]
         H, KV, hd = c.n_heads_padded, c.n_kv_padded, c.hd
         int8kv = c.kv_cache_dtype == "int8"
         for l in range(c.n_layers):
-            p = cast_tree(self.layer(l))
+            p = _gather_dense(cast_tree(self.layer(l)))
             h = rms_norm(x, p["ln1"], c.norm_eps)
             mix = torch.zeros_like(x)
             if c.has_attn:

@@ -15,6 +15,11 @@ restores only here.
 ``restore_latest`` + deterministic data replay (pipeline batches are a pure
 function of the step counter) give exactly-once training semantics across
 restarts.
+
+A tree of DTensors (a run under a mesh) is saved whole: every rank takes
+part in gathering each leaf, rank 0 writes, and every rank returns once the
+checkpoint is complete.  So a mesh run resumes without one and the other way
+round; ``restore`` gives whole tensors, which the caller places.
 """
 from __future__ import annotations
 
@@ -27,11 +32,15 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from . import _tree
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.contiguous().view(torch.int16).numpy().view(np.dtype("V2"))
@@ -49,14 +58,18 @@ def _to_tensor(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
          keep: int = 3) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
     flat = {key: _to_numpy(leaf) for key, leaf in _tree.items(tree)}
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    placed = any(isinstance(leaf, DTensor) for leaf in _tree.leaves(tree))
+    if placed and dist.get_rank() != 0:
+        dist.barrier()
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         np.savez(os.path.join(tmp, "state.npz"), **flat)
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump({"step": step, **(extra or {})}, f)
-        final = os.path.join(ckpt_dir, f"step_{step:08d}")
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
@@ -64,6 +77,8 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _rotate(ckpt_dir, keep)
+    if placed:
+        dist.barrier()
     return final
 
 

@@ -6,15 +6,20 @@
 * The update is the reference's chain of float32 operations, each multiply
   and add its own rounding (no ``alpha=`` forms, which may fuse into an
   FMA), written in place into the parameters and moments one slice at a
-  time: at most ``UPDATE_CHUNK`` elements (a whole layer of a stacked leaf
-  when a layer is larger), so the chain's float32 temporaries stay a slice's
-  size and no parameter is copied whole.  The reference's functional form
+  time: at most ``UPDATE_CHUNK`` elements (flat pieces of a leaf whose
+  tensors are contiguous, else rows of its leading dim, a whole layer of a
+  stacked leaf when a layer is larger), so the chain's float32 temporaries
+  stay a slice's size and no parameter is copied whole.  The reference's functional form
   returns new trees; here ``apply_updates`` returns the same tensors,
   updated.
 * The schedule and the bias corrections are float32 tensors on the
   parameters' device, as the reference computes them on its device.  With
   the reference run op by op the parameters, moments and learning rate come
   out bit for bit (``tests/test_torch_train.py``).
+* Under a mesh the parameters, gradients and moments are DTensors of one
+  layout (ZeRO-3: the moments inherit the parameters' placements): the
+  update runs on each rank's shards, and the global norm sums the squared
+  norms over every shard before its square root.
 """
 from __future__ import annotations
 
@@ -23,6 +28,9 @@ import math
 from typing import Any, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import psum
 
 from . import _tree
 
@@ -69,7 +77,11 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 def init_state(params, cfg: AdamWConfig) -> dict:
     """Zero moments shaped like ``params`` (a tree of tensors) in
     ``cfg.state_dtype``, and the step count, an int32 scalar."""
-    zeros = lambda _, p: torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+    def zeros(_, p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=cfg.state_dtype)
+        return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+
     dev = _tree.leaves(params)[0].device
     return {
         "m": _tree.map_with_path(zeros, params),
@@ -79,8 +91,23 @@ def init_state(params, cfg: AdamWConfig) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.float())) for x in _tree.leaves(tree)]
-    return _sqrt(torch.sum(torch.stack(sq)))
+    return _sqrt(torch.sum(torch.stack([_sq_norm(x) for x in _tree.leaves(tree)])))
+
+
+def _sq_norm(x: torch.Tensor) -> torch.Tensor:
+    """The squared norm of a leaf; of a DTensor, its shards' summed over the
+    mesh axes that shard it."""
+    if not isinstance(x, DTensor):
+        return torch.sum(torch.square(x.float()))
+    mesh = x.device_mesh
+    axes = [a for a, pl in zip(mesh.mesh_dim_names, x.placements) if pl.is_shard()]
+    return psum(torch.sum(torch.square(x.to_local().float())), axes, mesh)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A leaf's own elements: a DTensor's local shard (its storage), or the
+    tensor."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -135,6 +162,9 @@ def apply_updates(params, grads, state, cfg: AdamWConfig) -> Tuple[Any, dict, di
     flat_m = _tree.leaves(state["m"])
     flat_v = _tree.leaves(state["v"])
     for p, g, m, v in zip(_tree.leaves(params), flat_g, flat_m, flat_v):
+        p, g, m, v = (_local(t) for t in (p, g, m, v))
+        if all(t.is_contiguous() for t in (p, g, m, v)):
+            p, g, m, v = (t.view(-1) for t in (p, g, m, v))
         for sl in zip(_slices(p), _slices(g), _slices(m), _slices(v)):
             update(*sl)
     state["step"] = step

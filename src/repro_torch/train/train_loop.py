@@ -1,5 +1,5 @@
-"""The training loop: checkpoint/restart, straggler and failure handling.  The
-port of :mod:`repro.train.train_loop`, on one device.
+"""The training loop: sharded step, checkpoint/restart, straggler and failure
+handling.  The port of :mod:`repro.train.train_loop`.
 
 * **Checkpoint/restart** — atomic rotating checkpoints every ``ckpt_every``
   steps; on start the loop resumes from the latest complete checkpoint and
@@ -7,11 +7,17 @@ port of :mod:`repro.train.train_loop`, on one device.
   semantics).
 * **Failure injection** — ``fail_at_step`` raises mid-run; a restart must
   reproduce the uninterrupted run bit for bit.
+* **Elastic re-mesh** — :func:`reshard` moves live state onto a new (smaller
+  or larger) mesh: the node-loss path rebuilds the mesh from survivors,
+  reshards from checkpoint or live copies, and continues.
 * **Straggler mitigation** — per-step wall times feed an EWMA; steps slower
   than ``straggler_factor``× the EWMA are counted and surfaced in metrics.
 
-The elastic re-mesh (the reference's ``reshard``) comes with the mesh in the
-multi-card slice.
+Under a mesh (``distributed/sharding.set_mesh``) ``train`` lays the
+parameters, their ``.grad`` buffers and the moments out as DTensors by
+``param_shardings``/``opt_state_shardings`` (a rank holds only its shards,
+as the reference's ``in_shardings`` lay them out) and each step runs this
+rank's rows of the global batch.
 """
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import distribute, gather, get_mesh, local_chunk
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import LMModel
 from . import _tree
@@ -57,12 +65,18 @@ def train(
     without it the model is initialised afresh from ``generator`` (a
     generator on the model's device, seeded 0 when none is given), as the
     reference initialises from ``PRNGKey(0)``, so two runs start from the
-    same weights."""
+    same weights.  Under a mesh every rank initialises the whole model from
+    the same generator, then keeps its shards (``steps.place``); the model
+    stays placed after the run."""
     dev = model.device
+    mesh = get_mesh()
+    steps_mod.unplace(model)
     if params is None:
         model.init(torch.Generator(dev).manual_seed(0) if generator is None else generator)
     else:
         _load(model, params)
+    if mesh is not None:
+        steps_mod.place(model)
     opt_state = opt_mod.init_state(model.param_tree(), opt_cfg)
     start_step = 0
     if tcfg.ckpt_dir:
@@ -71,6 +85,12 @@ def train(
         if restored is not None:
             _load(model, restored["params"])
             opt_state = restored["opt"]
+            if mesh is not None:
+                # the moments as the parameters are laid out; the step count
+                # stays a plain scalar
+                sh = steps_mod.opt_state_shardings(model)
+                opt_state["m"] = reshard(opt_state["m"], sh["m"])
+                opt_state["v"] = reshard(opt_state["v"], sh["v"])
             start_step = int(meta["step"])
 
     step_fn = steps_mod.make_train_step(model, opt_cfg, accum=tcfg.accum)
@@ -104,12 +124,28 @@ def train(
             "resumed_from": start_step}
 
 
+def reshard(tree, shardings):
+    """Elastic re-mesh: place live state onto the active mesh by
+    ``shardings`` (a tree like ``tree`` of placements).  A leaf whose
+    sharding is ``None`` stays where it is; the others are gathered whole
+    from wherever they were laid out, then each rank keeps its shards."""
+    place = dict(_tree.items(shardings))
+    return _tree.map_with_path(
+        lambda k, x: x if place[k] is None else distribute(gather(x.detach()), place[k]),
+        tree)
+
+
 @torch.no_grad()
 def _load(model: LMModel, params) -> None:
-    """Copy a parameter tree (tensors or numpy arrays) into the model."""
+    """Copy a parameter tree (whole tensors or numpy arrays) into the model
+    (into this rank's shards where it is placed)."""
     got = dict(_tree.items(params))
     mine = dict(_tree.items(model.param_tree()))
     if set(got) != set(mine):
         raise KeyError(f"parameters {sorted(set(got) ^ set(mine))} do not match the model's")
     for key, p in mine.items():
-        p.copy_(torch.as_tensor(got[key]))
+        src = gather(torch.as_tensor(got[key]))
+        if isinstance(p, DTensor):
+            p.to_local().copy_(local_chunk(src, p.placements, p.device_mesh))
+        else:
+            p.copy_(src)

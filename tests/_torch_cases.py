@@ -659,3 +659,163 @@ def train_crash_resume(dev, root: str):
     resumed = {k: p.detach().clone() for k, p in m.params().items()}
     train(m, pipe.batch_at, ocfg, TrainConfig(steps=10, ckpt_every=3, ckpt_dir=clean))
     return out, resumed, {k: p.detach().clone() for k, p in m.params().items()}
+
+
+# ---------------------------------------------------------------------------
+# the mesh on one rank: every collective is the identity, so each mesh
+# result must equal its no-mesh result bit for bit (chip_smoke.py's phase
+# mesh and the card tests; on the CPU over a one-rank gloo group)
+# ---------------------------------------------------------------------------
+
+def mesh_train_pair(cfg, dev, mesh, batch_at, opt_cfg, tcfg) -> dict:
+    """``train_loop.train`` of ``cfg`` on ``dev`` from the same seed-0
+    weights, first under ``mesh`` (one rank), then without a mesh, the first
+    run's state freed before the second.  Returns {"mesh": ..., "plain":
+    ...}: each run's history, peak device memory (GB, the card only) and
+    seconds; the mesh run's layout, {name: (local shape, the shape
+    ``param_shardings`` gives a rank, placements == its sharding)}; the
+    parameters that differ between the runs; and the plain run's model."""
+    import time
+
+    import torch
+
+    from repro_torch.distributed.sharding import gather, local_chunk, set_mesh
+    from repro_torch.launch import steps
+    from repro_torch.models import LMModel
+    from repro_torch.train import _tree
+    from repro_torch.train.train_loop import train
+
+    cuda = dev.type == "cuda"
+    out, kept = {}, None
+    for name in ("mesh", "plain"):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        model = LMModel(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        set_mesh(mesh if name == "mesh" else None)
+        try:
+            t0 = time.time()
+            res = train(model, batch_at, opt_cfg, tcfg,
+                        generator=torch.Generator(dev).manual_seed(0))
+            seconds = time.time() - t0
+            if name == "mesh":
+                sh = dict(_tree.items(steps.param_shardings(model)))
+                layout = {k: (tuple(p.to_local().shape), tuple(local_chunk(
+                    torch.empty(p.shape, device="meta"), sh[k], mesh).shape),
+                    tuple(p.placements) == sh[k]) for k, p in _tree.items(model.param_tree())}
+        finally:
+            set_mesh(None)
+        r = {"history": res["history"], "seconds": seconds,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0}
+        params = dict(_tree.items(model.param_tree()))
+        if name == "mesh":
+            r["layout"] = layout
+            kept = {k: gather(p).detach().cpu() for k, p in params.items()}
+            del res, model, params
+        else:
+            r["differ"] = [k for k, p in params.items()
+                           if not torch.equal(p.detach().cpu(), kept[k])]
+            r["model"] = model
+        out[name] = r
+    return out
+
+
+def moe_block_mesh_vs_plain(model, mesh, x, mode: str) -> list:
+    """Layer 0's MoE, its weights cast to bf16, forward and backward (the
+    gradient of a fixed projection of its output) on ``x`` under ``mesh`` in
+    ``mode`` and without a mesh: the names of what differs among the output
+    and the gradients of ``x`` and every weight."""
+    import torch
+
+    from repro_torch.distributed.sharding import set_mesh
+    from repro_torch.models.layers import cast_tree, moe_apply, sub_params
+
+    c = model.cfg
+    with torch.no_grad():
+        p = cast_tree(sub_params(model.layer(0), "moe"))
+    w = torch.randn(x.shape, generator=torch.Generator(x.device).manual_seed(4),
+                    device=x.device)
+
+    def run(on_mesh):
+        ps = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xx = x.clone().requires_grad_()
+        set_mesh(mesh if on_mesh else None)
+        try:
+            y = moe_apply(xx, ps, top_k=c.top_k, capacity_factor=c.capacity_factor,
+                          act=c.mlp_act, mode=mode)
+        finally:
+            set_mesh(None)
+        (y.float() * w).sum().backward()
+        return {"out": y.detach(), "x": xx.grad, **{k: v.grad for k, v in ps.items()}}
+
+    got, want = run(True), run(False)
+    return [k for k in want if not torch.equal(got[k], want[k])]
+
+
+def serve_mesh_vs_plain(model, mesh, tokens, steps: int) -> list:
+    """``prefill`` of ``tokens`` (B, S) and ``steps`` greedy ``decode_step``
+    calls under ``mesh`` and without: what differs among the logits and the
+    final caches."""
+    import torch
+
+    from repro_torch.distributed.sharding import set_mesh
+
+    def run(on_mesh):
+        set_mesh(mesh if on_mesh else None)
+        try:
+            S = tokens.shape[1]
+            cache, logits = model.prefill({"tokens": tokens}, max_len=S + steps)
+            outs = [logits]
+            for i in range(steps):
+                cache, logits = model.decode_step(cache, outs[-1].argmax(-1), S + i)
+                outs.append(logits)
+        finally:
+            set_mesh(None)
+        return {**{f"logits{i}": t for i, t in enumerate(outs)},
+                **{f"cache/{k}": v for k, v in cache.items()}}
+
+    got, want = run(True), run(False)
+    return [k for k in want if not torch.equal(got[k], want[k])]
+
+
+def compressed_vs_plain(model, mesh, batch, opt_cfg) -> dict:
+    """One ``make_compressed_dp_step`` step over ``mesh``'s one-rank data
+    axis from the model's weights, zero moments and zero error state, against
+    the plain update (``apply_updates``) on each gradient's
+    ``dequantize(quantize(g))`` from the same weights.  Returns the
+    parameters and error-state leaves that differ, the two metrics, and the
+    wire bytes a step (int8 plus a float32 scale a leaf, against float32)."""
+    import torch
+
+    from repro_torch.distributed import compression as comp
+    from repro_torch.launch.steps import zero_grads
+    from repro_torch.train import _tree
+    from repro_torch.train import optimizer as opt_mod
+
+    params = model.param_tree()
+    before = {k: p.detach().clone() for k, p in _tree.items(params)}
+    err = comp.init_error_state(params)
+    _, err, met = comp.make_compressed_dp_step(model, opt_cfg, mesh)(
+        opt_mod.init_state(params, opt_cfg), err, batch)
+    got = {k: p.detach().clone() for k, p in _tree.items(params)}
+    with torch.no_grad():
+        for k, p in _tree.items(params):
+            p.copy_(before[k])
+    del before
+    zero_grads(model)
+    loss, _ = model.loss(batch)
+    loss.backward()
+    want_err = {}
+    with torch.no_grad():
+        for k, p in _tree.items(params):
+            q, s = comp.quantize(p.grad.float())
+            want_err[k] = p.grad.float() - comp.dequantize(q, s)
+            p.grad.copy_(comp.dequantize(q, s))
+    grads = _tree.map_with_path(lambda _, p: p.grad, params)
+    _, _, om = opt_mod.apply_updates(params, grads, opt_mod.init_state(params, opt_cfg), opt_cfg)
+    n = [p.numel() for p in _tree.leaves(params)]
+    return {"params_differ": [k for k, p in _tree.items(params) if not torch.equal(p, got[k])],
+            "err_differ": [k for k, e in _tree.items(err) if not torch.equal(e, want_err[k])],
+            "compressed": {k: float(v) for k, v in met.items()},
+            "plain": {"loss": float(loss.detach()), **{k: float(v) for k, v in om.items()}},
+            "wire_bytes": sum(n) + 4 * len(n), "float32_bytes": 4 * sum(n)}

@@ -8,7 +8,9 @@ in another slot.  The LM cases at the end hold the model's logits on the
 card to the port on the CPU within a stated tolerance (cuBLAS sums its bf16
 products in another order), and the served tokens exactly; the training
 cases hold a train step's loss and gradients to the CPU port within stated
-tolerances, and crash-resume and the remat settings bit for bit.
+tolerances, and crash-resume and the remat settings bit for bit.  The mesh
+cases run on a one-rank NCCL mesh, where every collective is the identity:
+each mesh result equals its no-mesh result bit for bit.
 """
 import bisect
 import dataclasses
@@ -18,12 +20,13 @@ import pytest
 import torch
 
 from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, LM_CARD_TOL, LM_GRAD_RTOL,
-                          WORD_BATCHES, WORD_WINDOW, edge_cdf_rows, lm_card_vs_cpu, lm_pair,
-                          lm_train_batch, lm_train_step_card_vs_cpu, nan_equal,
+                          WORD_BATCHES, WORD_WINDOW, compressed_vs_plain, edge_cdf_rows,
+                          lm_card_vs_cpu, lm_pair, lm_train_batch, lm_train_step_card_vs_cpu,
+                          mesh_train_pair, moe_block_mesh_vs_plain, nan_equal,
                           nonfinite_tables, query_rows, remat_grads, saturation_cases,
-                          short_orders, tie_cases, tie_table, train_crash_resume, trimmed,
-                          underflow_keys, underflow_table, wide_edge_case, word_edge_case,
-                          word_edge_indexes, word_rows)
+                          serve_mesh_vs_plain, short_orders, tie_cases, tie_table,
+                          train_crash_resume, trimmed, underflow_keys, underflow_table,
+                          wide_edge_case, word_edge_case, word_edge_indexes, word_rows)
 from repro_torch.core.strings import StringSet
 from repro_torch.core.builder import LITSBuilder, LITSConfig
 from repro_torch.core.tensor_index import DATA_FIELDS, freeze, pad_queries
@@ -872,3 +875,76 @@ def test_cuda_remat_settings_give_bitwise_equal_grads(cuda, arch):
     for policy in ("none", "dots"):
         for name, g in grads["off"].items():
             assert torch.equal(grads[policy][name], g), (policy, name)
+
+
+# ---------------------------------------------------------------------------
+# the device mesh on one rank (chip_smoke.py's phase mesh at reduced size)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL ``("data", "model")`` mesh, its group ended after the
+    test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(device=cuda)
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "llama4-scout-17b-a16e"])
+def test_cuda_mesh_train_steps_bitwise(cuda, nccl_mesh, arch):
+    """Two steps through ``train_loop.train`` under the one-rank mesh and
+    without: every loss, grad norm and parameter equal; every local shard
+    the shape ``param_shardings`` gives it."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import TrainConfig
+
+    r = ARCHS[arch].reduced()
+    pipe = TokenPipeline(PipelineConfig(vocab=r.vocab, seq_len=64, global_batch=2))
+    runs = mesh_train_pair(r, cuda, nccl_mesh, pipe.batch_at, AdamWConfig(),
+                           TrainConfig(steps=2, accum=2))
+    assert runs["plain"]["differ"] == []
+    for key in ("loss", "grad_norm"):
+        assert [h[key] for h in runs["mesh"]["history"]] == \
+            [h[key] for h in runs["plain"]["history"]]
+    assert all(got == want and same for got, want, same in runs["mesh"]["layout"].values())
+
+
+def test_cuda_mesh_moe_block_and_serving_bitwise(cuda, nccl_mesh):
+    """The reduced llama4's MoE block forward and backward in ``ag`` and
+    ``ws``, and a prefill with 4 decode steps, under the mesh and without."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import LMModel
+
+    r = ARCHS["llama4-scout-17b-a16e"].reduced()
+    model = LMModel(r, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    x = torch.randn((2, 32, r.d_model), generator=torch.Generator(cuda).manual_seed(3),
+                    device=cuda).to(torch.bfloat16)
+    for mode in ("ag", "ws"):
+        assert moe_block_mesh_vs_plain(model, nccl_mesh, x, mode) == [], mode
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, r.vocab, (4, 48)).astype(
+        np.int32)).to(cuda)
+    assert serve_mesh_vs_plain(model, nccl_mesh, tokens, 4) == []
+
+
+def test_cuda_compressed_step_bitwise(cuda, nccl_mesh):
+    """``make_compressed_dp_step`` over the one-rank data axis: the plain
+    update on each gradient's ``dequantize(quantize(g))``, and the error
+    state ``g32 - dequantize(q, scale)``."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import LMModel
+    from repro_torch.train.optimizer import AdamWConfig
+
+    r = ARCHS["deepseek-7b"].reduced()
+    model = LMModel(r, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    batch = {k: v.to(cuda) for k, v in lm_train_batch(r, np.random.default_rng(6), 2,
+                                                      32).items()}
+    got = compressed_vs_plain(model, nccl_mesh, batch, AdamWConfig())
+    assert got["params_differ"] == [] and got["err_differ"] == []
+    assert got["compressed"]["loss"] == got["plain"]["loss"]
+    assert got["compressed"]["grad_norm"] == got["plain"]["grad_norm"]

@@ -217,6 +217,33 @@ def _deepseek(seed=2):
     return rm, params, m
 
 
+def test_apply_updates_in_slices_bitwise(monkeypatch):
+    """The update a slice at a time (flat pieces of contiguous leaves, rows
+    of a leaf with a non-contiguous tensor) gives the parameters and moments
+    of the update in one piece, bit for bit."""
+    shapes = {"stack": (2, 5, 6), "mat": (7, 3), "vec": (13,), "scalar": ()}
+    cfg = topt.AdamWConfig(state_dtype=torch.bfloat16, warmup_steps=1, total_steps=4)
+
+    def leaves(seed):
+        r = np.random.default_rng(seed)
+        return {k: torch.from_numpy(r.standard_normal(v).astype(np.float32))
+                for k, v in shapes.items()}
+
+    out = []
+    for chunk in (1 << 25, 4):
+        monkeypatch.setattr(topt, "UPDATE_CHUNK", chunk)
+        p, g = leaves(1), leaves(2)
+        g["mat"] = g["mat"].t().contiguous().t()       # a non-contiguous gradient
+        st = topt.init_state(p, cfg)
+        for _ in range(2):
+            topt.apply_updates(p, g, st, cfg)
+        out.append((p, st))
+    for k in shapes:
+        assert torch.equal(out[0][0][k], out[1][0][k]), k
+        for mom in ("m", "v"):
+            assert torch.equal(out[0][1][mom][k], out[1][1][mom][k]), (mom, k)
+
+
 def _lm_batch(cfg, rng, B, S):
     toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
@@ -493,19 +520,23 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     assert all(p.device.type == "cpu" for p in _flat(out["params"]).values())
     assert ckpt.list_steps(str(tmp_path)) == [2, 4]
     assert out["opt_state"]["m"]["embed"].dtype == torch.float32
-    with pytest.raises(SystemExit):
-        launcher.main(["--arch", "deepseek-7b", "--device", "cpu", "--use-mesh"])
-    assert "--use-mesh: the device mesh is not ported yet" in capsys.readouterr().err
+    # --use-mesh trains under a one-rank host mesh, whose group it ends
+    meshed = launcher.main(["--arch", "deepseek-7b", "--steps", "4", "--batch", "4", "--seq",
+                            "8", "--device", "cpu", "--accum", "2", "--use-mesh"])
+    assert [h["loss"] for h in meshed["history"]] == [h["loss"] for h in out["history"]]
+    assert all(p.device.type == "cpu" for p in _flat(meshed["params"]).values())
+    assert not torch.distributed.is_initialized()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             launcher.main(["--arch", "deepseek-7b", "--steps", "1"])
 
 
 def test_train_modules_import_no_jax():
-    """``repro_torch.train`` and the launchers load neither ``jax`` nor the
-    reference package."""
+    """``repro_torch.train``, the launchers, the mesh and the distributed
+    training modules load neither ``jax`` nor the reference package."""
     code = ("import sys; import repro_torch.train.train_loop, repro_torch.train.checkpoint, "
-            "repro_torch.launch.train, repro_torch.launch.steps; "
+            "repro_torch.launch.train, repro_torch.launch.steps, repro_torch.launch.mesh, "
+            "repro_torch.distributed.sharding, repro_torch.distributed.compression; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
