@@ -73,7 +73,17 @@ size on one 1,000,000-key synthetic URL index:
   ``ag`` and ``ws``, and a prefill with decode steps; the int8-compressed
   data-parallel step at deepseek-7b's full width (4 layers) against the
   plain update on the round-tripped gradient; ``launch/train.py
-  --use-mesh``.  No TPU kernel lies on this path either.
+  --use-mesh``; dense tensor parallelism's compute pieces and its sums over
+  the one-rank ``model`` group (NCCL all-reduces) under those checks.  No
+  TPU kernel lies on this path either;
+* bf16 parameters: deepseek-7b at full width cast from phase lm's float32
+  model (then freed) serves two request batches, its greedy tokens and
+  first decode step held to the float32 model's;
+* the dry-run and roofline tools on the card's host CPU over torch's fake
+  process group: deepseek-7b's train, prefill and decode cells on the
+  (16, 16) mesh, the LITS query-service cell, and phase train's own
+  configuration on a (1, 1) mesh, its predicted memory beside the measured
+  peak and its analytic compute term beside the measured step time.
 
 Every GetCDF (K2) and locate (K1) call of a second bulk load of the same
 keys (so that the recorder stays out of the timed one) is recorded and
@@ -94,8 +104,8 @@ before/after run): the phases that package cannot pass are skipped, each
 with a line that says so: the compaction phase, the check that the
 GetCDF/locate kernels' float ops all flush subnormals, the K7 phase with
 non-finite tables, the kernel-versus-plain checks on the underflow rows,
-and the execute, service, snapshot, wide-row, distributed, lm, train and
-mesh phases.  Without it every phase runs.
+and the execute, service, snapshot, wide-row, distributed, lm, train,
+mesh and dryrun phases.  Without it every phase runs.
 
 Output: one line per phase, then a JSON line of per-kernel numbers, then
 the last line ``{"ok": true, "device": {...}}``.
@@ -163,6 +173,7 @@ LM_REPEAT = 0.5             # ... share of repeated batches (launch/serve.py's d
 LM_CAPACITY = 12            # ... prefix-cache slots (16 prompts drawn: the LRU evicts
                             #     through DELETE)
 LM_MAX_LEN = 512            # ... the engine's KV window bound
+LM_BF16_BATCHES = 2         # ... (f) request batches served with bf16 parameters
 TRAIN_ARCH = "deepseek-7b"  # phase train: the arch trained at its published width
 TRAIN_LAYERS = 15           # ... its depth, cut so that training fits one card (PERF.md §4)
 TRAIN_REDUCED = False       # ... True only to rehearse the phase on the CPU
@@ -184,6 +195,9 @@ MESH_PEAK_GB = 72.0         # ... either run's peak device memory must stay unde
 MESH_SERVE = (4, 48, 4)     # ... (b) prefill rows, prompt tokens, decode steps
 MESH_DP_ARCH = "deepseek-7b"  # ... (c) the compressed data-parallel step's arch, full width
 MESH_DP_LAYERS = 4          # ... its depth: 1.649 B parameters, 16 B each with the error state
+DRYRUN_ARCH = "deepseek-7b"  # phase dryrun: the arch dry-run on the (16, 16) mesh
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")  # ... its cells
+DRYRUN_TIMEOUT = 400        # ... seconds for all its subprocesses
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
@@ -1916,7 +1930,10 @@ def lm_phase(smi, dev):
     (f) every slot the cache's index returns equals the cache's host dict;
     (g) every K4 call the served traffic made (the cache's lookups and the
         base walks of its admissions and evictions) equals the plain
-        version's on the same rows and index, on every output.
+        version's on the same rows and index, on every output;
+    (f) the same weights as bf16 parameters (``LMModel(param_dtype=
+        torch.bfloat16)``, cast from this model, which is then freed):
+        ``lm_bf16_phase``.
 
     Returns the index kernels' launches during the served traffic and the
     phase's numbers."""
@@ -2056,33 +2073,17 @@ def lm_phase(smi, dev):
     cache, logits = model.prefill({"tokens": prompts}, max_len=need)
     tok = torch.argmax(logits[:, : cfg.vocab], -1).to(torch.int32)
     decode_ms = time_cuda(lambda: model.decode_step(cache, tok, LM_PROMPT), reps=10)
+    with torch.no_grad():
+        f32_dec = model.decode_step(cache, tok, LM_PROMPT)[1].float().cpu()   # for (f)
     say(f"phase lm: prefill of {LM_BATCH} x {LM_PROMPT} tokens {prefill_ms:.2f} ms; decode "
         f"step of {LM_BATCH} rows {decode_ms:.2f} ms = {LM_BATCH / decode_ms * 1e3:.1f} "
         f"tokens/s; max_memory_allocated {peak():.2f} GB ({smi})")
 
     # where a decode step's time goes: one step under the profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
-    sync()
-    with profile(activities=acts) as prof:
-        model.decode_step(cache, tok, LM_PROMPT)
-        sync()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:   # kernel names are C++ templates: their heads and functors
-        head = re.sub(r"^void |<.*$|\(.*$", "", e.name).replace("at::native::", "")[:40]
-        functor = re.search(r"(\w+)_kernel_cuda", e.name)
-        slot = by_name[head + (f"[{functor.group(1)}]" if functor else "")]
-        slot[0] += e.time_range.elapsed_us() / 1e3
-        slot[1] += 1
-    dev_ms = sum(ms for ms, _ in by_name.values())
+    dev_ms, n_kernels, top = decode_profile(model, cache, tok)
     say(f"phase lm: one profiled decode step: {dev_ms:.2f} ms of kernel time against the "
         f"{decode_ms:.2f} ms step (idle share {max(0.0, 1 - dev_ms / decode_ms):.2f}), "
-        f"{len(kernels)} kernel launches; by kernel: " + ", ".join(
-            f"{k} {ms:.2f} ms x{n}" for k, (ms, n) in sorted(
-                by_name.items(), key=lambda kv: -kv[1][0])[:8]))
+        f"{n_kernels} kernel launches; by kernel: {top}")
 
     # (b) prefill and decode against forward, at full width: prefill to the
     #     reference's 2e-2; decode to its 6e-2 at its test's depth (the first
@@ -2130,7 +2131,17 @@ def lm_phase(smi, dev):
     if bool(bad):   # (d)
         fail("phase lm: a non-finite logit on the served path")
     peak_gb = peak()
+    # (f) the same weights as bf16 parameters, cast from this model, which
+    #     is then freed
+    with torch.no_grad():
+        bf16 = LMModel(cfg, device=dev, param_dtype=torch.bfloat16, init=False)
+        for q, p in zip(bf16.parameters(), model.parameters()):
+            q.copy_(p)
     del model, eng, prompts, cache, logits, tok, last, x, x1, card_logits
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    bf16_numbers = lm_bf16_phase(bf16, plan, first_out, f32_dec, need, smi, dev)
+    del bf16
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     say(f"phase lm: checks (b) prefill vs forward max |diff| {err_prefill:.4g} (tol 2e-2); "
@@ -2155,8 +2166,84 @@ def lm_phase(smi, dev):
                "k4_calls_checked": len(k4_calls) + len(k4_lookup), "k4_rows": k4_rows,
                "k4_max_abs_err": k4_err,
                "service_p50_ms": svc.p50_ms, "service_p99_ms": svc.p99_ms,
-               "reduced_arch_max_err": reduced_errs}
+               "reduced_arch_max_err": reduced_errs, "bf16": bf16_numbers}
     return launches, numbers
+
+
+def decode_profile(model, cache, tok):
+    """One ``decode_step`` under the profiler: (kernel ms, kernel launches,
+    the 8 largest kernels by time, as text)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
+    sync()
+    with profile(activities=acts) as prof:
+        model.decode_step(cache, tok, LM_PROMPT)
+        sync()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:   # kernel names are C++ templates: their heads and functors
+        head = re.sub(r"^void |<.*$|\(.*$", "", e.name).replace("at::native::", "")[:40]
+        functor = re.search(r"(\w+)_kernel_cuda", e.name)
+        slot = by_name[head + (f"[{functor.group(1)}]" if functor else "")]
+        slot[0] += e.time_range.elapsed_us() / 1e3
+        slot[1] += 1
+    top = ", ".join(f"{k} {ms:.2f} ms x{n}" for k, (ms, n) in sorted(
+        by_name.items(), key=lambda kv: -kv[1][0])[:8])
+    return sum(ms for ms, _ in by_name.values()), len(kernels), top
+
+
+def lm_bf16_phase(model, plan, first_out, f32_dec, need: int, smi, dev) -> dict:
+    """Check (f) of phase lm: ``model`` holds the phase's weights as bf16
+    parameters (the float32 model they were cast from is freed).  A new
+    ``ServeEngine`` serves the first LM_BF16_BATCHES request batches of the
+    phase's plan: their greedy tokens must equal the float32 model's, and
+    the first decode step's logits on the first batch must be within
+    LM_CARD_TOL of the float32 model's (the products see the same bf16
+    weights either way: the float32 model casts each layer to bf16 as it
+    runs).  Prints ms a decode step and a prefill, one profiled decode
+    step's kernels, and the peak memory, against the float32 model's in the
+    phase's lines above."""
+    from repro_torch.serve import ServeEngine
+
+    from _torch_cases import LM_CARD_TOL
+
+    t = time.time()
+    cuda = DEVICE == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    weight_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    eng = ServeEngine(model, cache_capacity=LM_CAPACITY, max_len=LM_MAX_LEN)
+    try:
+        for bid, prompts in plan[:LM_BF16_BATCHES]:
+            out = eng.generate(prompts, n_steps=LM_GEN)["generated"]
+            if not np.array_equal(out, first_out[bid]):
+                fail(f"phase lm: (f) bf16 parameters generated other tokens for batch {bid}")
+    finally:
+        eng.prefix_cache.close()
+    prompts = torch.from_numpy(plan[0][1]).to(dev)
+    cache, logits = model.prefill({"tokens": prompts}, max_len=need)
+    tok = torch.argmax(logits[:, : model.cfg.vocab], -1).to(torch.int32)
+    with torch.no_grad():
+        err = lm_close("(f) bf16 vs float32 parameters, first decode step",
+                       model.decode_step(cache, tok, LM_PROMPT)[1], f32_dec, LM_CARD_TOL)
+    prefill_ms = time_cuda(lambda: model.prefill({"tokens": prompts}, max_len=need), reps=5)
+    decode_ms = time_cuda(lambda: model.decode_step(cache, tok, LM_PROMPT), reps=10)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    dev_ms, n_kernels, top = decode_profile(model, cache, tok)
+    say(f"phase lm: (f) one profiled bf16 decode step: {dev_ms:.2f} ms of kernel time against "
+        f"the {decode_ms:.2f} ms step (idle share {max(0.0, 1 - dev_ms / decode_ms):.2f}), "
+        f"{n_kernels} kernel launches; by kernel: {top}")
+    say(f"phase lm: (f) bf16 parameters ({weight_gb:.2f} GB, cast from the float32 model, "
+        f"which is freed): {LM_BF16_BATCHES} request batches' greedy tokens equal the float32 "
+        f"model's; first decode step max |logit diff| {err:.4g} (tol {LM_CARD_TOL}); prefill of "
+        f"{LM_BATCH} x {LM_PROMPT} tokens {prefill_ms:.2f} ms; decode step of {LM_BATCH} rows "
+        f"{decode_ms:.2f} ms; max_memory_allocated {peak_gb:.2f} GB ({smi}; "
+        f"{time.time() - t:.1f} s)")
+    return {"weight_gb": weight_gb, "peak_gb": peak_gb, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "first_decode_max_err": err,
+            "profiled_decode_step_device_ms": dev_ms, "profiled_decode_step_kernels": n_kernels}
 
 
 def fwd_bwd_ms(model, batch, policy: str) -> tuple:
@@ -2513,7 +2600,13 @@ def mesh_phase(smi, dev):
         ``dequantize(quantize(g))``, and its error state is ``g32 -
         dequantize(q, scale)``;
     (d) ``launch/train.main(["--arch", MESH_ARCH, "--use-mesh", "--steps",
-        "3"])`` (reduced) on the card.
+        "3"])`` (reduced) on the card;
+    (e) dense tensor parallelism on the one-rank ``model`` axis: each dense
+        weight's compute piece (``LMModel._local_params``) is its ``"tp"``
+        dim over the axis size, its stored shard is ``param_shardings``'
+        (the layout of (a)), and (a) and (b), bit for bit against no mesh,
+        went through the sums over the model group (NCCL all-reduces,
+        counted).
 
     Prints ms a step both ways, the peaks, the local shard shapes, the
     compressed step's ms against the plain step's and its wire bytes.
@@ -2526,11 +2619,13 @@ def mesh_phase(smi, dev):
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.distributed import sharding
     from repro_torch.kernels import _build
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as train_launcher
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import LMModel
+    from repro_torch.models.layers import cast_tree
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_loop import TrainConfig
 
@@ -2553,8 +2648,9 @@ def mesh_phase(smi, dev):
                                             global_batch=MESH_BATCH))
         _build.reset_launches()
         sync()
-        runs = mesh_train_pair(cfg, dev, mesh, pipe.batch_at, AdamWConfig(),
-                               TrainConfig(steps=MESH_STEPS, accum=MESH_ACCUM))
+        with tp_calls_on(mesh) as tp_calls:   # (e): the sums over the model axis
+            runs = mesh_train_pair(cfg, dev, mesh, pipe.batch_at, AdamWConfig(),
+                                   TrainConfig(steps=MESH_STEPS, accum=MESH_ACCUM))
         sync()
         launches = dict(_build.LAUNCHES)
         model = runs["plain"].pop("model")
@@ -2606,8 +2702,41 @@ def mesh_phase(smi, dev):
         B, S, n_dec = MESH_SERVE
         tokens = torch.from_numpy(np.random.default_rng(SEED + 9).integers(
             0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
-        differ = serve_mesh_vs_plain(model, mesh, tokens, n_dec)
+        with tp_calls_on(mesh) as serve_calls:
+            differ = serve_mesh_vs_plain(model, mesh, tokens, n_dec)
         check(not differ, f"(b) prefill and decode: {differ} differ")
+
+        # (e) dense tensor parallelism on the one-rank model axis: every dense
+        #     weight's compute piece is its "tp" dim over the axis size, the
+        #     stored shards are param_shardings' ((a)'s layout), and (a) and
+        #     (b) went through the sums over the model group on NCCL
+        m_size = mesh.size(mesh.mesh_dim_names.index("model"))
+        sharding.set_mesh(mesh)
+        try:
+            with torch.no_grad():
+                pieces = model._local_params(cast_tree(model.layer(0)))
+        finally:
+            sharding.set_mesh(None)
+        defs, split = model.layer_defs(), {}
+        for k, v in pieces.items():
+            pd = defs[k]
+            if k.startswith("moe.") or "tp" not in pd.logical:
+                continue
+            want = list(pd.shape)
+            want[pd.logical.index("tp")] //= m_size
+            split[k] = (tuple(v.shape), tuple(want))
+        bad = [k for k, (got, want) in split.items() if got != want]
+        check(split and not bad, f"(e) compute pieces of {bad} off their tp split")
+        dense = {k: v for k, v in layout.items() if k.startswith(("blocks/attn", "embed",
+                                                                    "lm_head"))}
+        check(all(got == want and same for got, want, same in dense.values()),
+              f"(e) dense shards off param_shardings: {dense}")
+        check(tp_calls["n"] > 0 and serve_calls["n"] > 0,
+              f"(e) no sum over the model group: (a) {tp_calls['n']}, (b) {serve_calls['n']}")
+        say(f"phase mesh: (e) dense tensor parallelism over the one-rank model axis (m = "
+            f"{m_size}): compute pieces {split}; dense shards == param_shardings; all-reduces "
+            f"on the {dist.get_backend().upper()} model group: (a) {tp_calls['n']}, (b) "
+            f"{serve_calls['n']}, every (a)/(b) result bit for bit against no mesh")
         del model, x
         if cuda:
             torch.cuda.empty_cache()
@@ -2683,6 +2812,130 @@ def mesh_phase(smi, dev):
                "dp_ms": dp_ms, "dp_peak_gb": peak_dp, "dp_wire_bytes": res["wire_bytes"],
                "dp_float32_bytes": res["float32_bytes"]}
     return launches, numbers
+
+
+DRYRUN_SCRIPT = r"""
+import dataclasses, json, sys
+import torch
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch.dryrun import run_config
+from repro_torch.train.optimizer import AdamWConfig
+
+arch, layers, seq, batch, accum = sys.argv[1], *map(int, sys.argv[2:6])
+cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+rec = run_config(cfg, ShapeSpec("phase_train", seq, batch, "train"), mesh_shape=(1, 1),
+                 param_dtype=torch.float32, opt_cfg=AdamWConfig(state_dtype=torch.float32),
+                 accum=accum)
+print(json.dumps(rec))
+"""
+
+
+def dryrun_phase(train_numbers, smi) -> dict:
+    """Phase dryrun: the dry-run and roofline tools on the card's host, on
+    the CPU over torch's fake process group (no card involved: the
+    subprocesses see none), all started together, each failing the run if
+    it fails or writes a record with an error:
+
+    * ``python -m repro_torch.launch.dryrun --arch DRYRUN_ARCH --shape S`` for
+      each S of DRYRUN_SHAPES on the (16, 16) mesh, and ``python -m
+      repro_torch.launch.dryrun_index`` at its defaults; their records under
+      ``build/dryrun``, tabulated by ``launch/roofline``;
+    * the dry-run of phase train's own configuration (TRAIN_ARCH cut to
+      TRAIN_LAYERS layers, TRAIN_BATCH rows of TRAIN_SEQ tokens, accum
+      TRAIN_ACCUM, float32 parameters and moments) on a (1, 1) mesh: its
+      predicted memory a device beside phase train's measured peak, and
+      ``launch/roofline``'s analytic compute term for that step (its FLOPs
+      over the H100's published 989 TFLOP/s bf16) beside phase train's
+      measured step time, as a share.
+
+    Returns the phase's numbers."""
+    import dataclasses as dc
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import roofline
+
+    t = time.time()
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
+    cmds = {s: [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+                "--shape", s, "--out", out_dir] for s in DRYRUN_SHAPES}
+    cmds["index"] = [sys.executable, "-m", "repro_torch.launch.dryrun_index", "--out", out_dir]
+    cmds["phase train"] = [sys.executable, "-c", DRYRUN_SCRIPT, TRAIN_ARCH, str(TRAIN_LAYERS),
+                           str(TRAIN_SEQ), str(TRAIN_BATCH), str(TRAIN_ACCUM)]
+    procs = {k: subprocess.Popen(c, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) for k, c in cmds.items()}
+    outs = {}
+    try:
+        for k, p in procs.items():
+            stdout, stderr = p.communicate(timeout=max(DRYRUN_TIMEOUT - (time.time() - t), 1))
+            if p.returncode != 0:
+                fail(f"phase dryrun: {k} exited {p.returncode}: {stderr[-2000:]}")
+            outs[k] = stdout
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    recs = roofline.load_all(out_dir)
+    bad = [r for r in recs if "error" in r or "skip" in r]
+    if bad or len(recs) != len(DRYRUN_SHAPES) + 1:
+        fail(f"phase dryrun: {len(recs)} records, {len(bad)} failed or skipped: "
+             f"{[r.get('error', r.get('skip'))[:300] for r in bad]}")
+    say(f"phase dryrun: {DRYRUN_ARCH} {', '.join(DRYRUN_SHAPES)} on (16, 16) and the LITS "
+        f"query service, on the host CPU over the fake process group (analytic terms on the "
+        f"published peaks of an H100 SXM at 700 W):")
+    for line in roofline.table(recs).splitlines():
+        say("phase dryrun: " + line)
+    own = json.loads(outs["phase train"].strip().splitlines()[-1])
+    if "error" in own:
+        fail(f"phase dryrun: phase train's configuration: {own['error'][:300]}")
+    cfg = dc.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    shape = ShapeSpec("phase_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    compute_s = roofline.analytic_flops(cfg, shape) / roofline.PEAK_FLOPS
+    predicted_gb = own["memory"]["total_per_device"] / 1e9
+    measured_ms = train_numbers["step_ms"] if train_numbers else None
+    share = compute_s * 1e3 / measured_ms if measured_ms else None
+    say(f"phase dryrun: phase train's configuration ({TRAIN_ARCH}, {TRAIN_LAYERS} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, accum {TRAIN_ACCUM}, float32 parameters and "
+        f"moments) on a (1, 1) mesh: predicted {predicted_gb:.2f} GB a device (arguments "
+        f"{own['memory']['argument_size_in_bytes'] / 1e9:.2f} GB + temporaries "
+        f"{own['memory']['temp_size_in_bytes'] / 1e9:.2f} GB) against phase train's measured "
+        f"peak {train_numbers['peak_gb'] if train_numbers else float('nan'):.2f} GB; analytic "
+        f"compute term {compute_s * 1e3:.1f} ms ({roofline.analytic_flops(cfg, shape) / 1e12:.1f} "
+        f"TFLOP at {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s) against the measured step "
+        f"{measured_ms if measured_ms else float('nan'):.1f} ms: share "
+        f"{share if share else float('nan'):.4f} ({smi}; phase {time.time() - t:.1f} s)")
+    return {"records": {r["shape"]: {k: r[k] for k in ("memory", "collectives", "roofline",
+                                                       "dominant")} for r in recs},
+            "phase_train_predicted_gb": predicted_gb,
+            "phase_train_measured_peak_gb": train_numbers["peak_gb"] if train_numbers else None,
+            "phase_train_compute_s": compute_s, "phase_train_step_ms": measured_ms,
+            "roofline_share": share, "seconds": time.time() - t}
+
+
+@contextlib.contextmanager
+def tp_calls_on(mesh):
+    """Count the ``torch.distributed.all_reduce`` calls made on ``mesh``'s
+    model group inside the block: ``{"n": count}``."""
+    import torch.distributed as dist
+
+    group, real, got = mesh.get_group("model"), dist.all_reduce, {"n": 0}
+
+    def counted(t, *a, **kw):
+        if kw.get("group") is group:
+            got["n"] += 1
+        return real(t, *a, **kw)
+
+    dist.all_reduce = counted
+    try:
+        yield got
+    finally:
+        dist.all_reduce = real
 
 
 def free_port() -> int:
@@ -3289,6 +3542,12 @@ def main(parent: bool = False) -> int:
         for r in rows:
             r["launches_by_path"]["mesh"] = mesh_launches[r["name"]]
         say("phase mesh: numbers " + json.dumps(mesh_numbers))
+
+    # 19. the dry-run and roofline tools, on the host CPU: no kernel, no card
+    if parent:
+        say("phase dryrun: skipped (--parent: the package predates the dry-run)")
+    else:
+        say("phase dryrun: numbers " + json.dumps(dryrun_phase(train_numbers, smi)))
     say(f"phase done in {time.time() - t_all:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3305,6 +3564,6 @@ if __name__ == "__main__":
                     help="skip the phases an older package cannot pass: compaction, the "
                          "flush check of the float ops, K7's non-finite tables, the "
                          "underflow rows, execute, the service, snapshots, wide rows, "
-                         "the distributed index, the LM serving path, LM training and "
-                         "the mesh")
+                         "the distributed index, the LM serving path, LM training, "
+                         "the mesh and the dry-run")
     sys.exit(main(ap.parse_args().parent))

@@ -45,7 +45,10 @@ def _tensor(a, device) -> torch.Tensor:
 def lm_params_from_reference(params: dict, model: LMModel) -> LMModel:
     """Load a reference ``LMModel`` parameter tree, given as numpy arrays
     (``{"embed", "final_ln", "lm_head", ["frontend_proj"], "blocks": {"ln1":
-    (L, d), "attn.wq": (L, d, H·hd), ...}}``), into the port's ``model``."""
+    (L, d), "attn.wq": (L, d, H·hd), ...}}``), into the port's ``model``.
+    Each leaf keeps its dtype: a reference built with ``param_dtype=bfloat16``
+    loads into a model of ``param_dtype=torch.bfloat16``, bit for bit, and a
+    leaf whose dtype is not the model's is refused."""
     flat = {k: v for k, v in params.items() if k != "blocks"}
     flat.update({"blocks." + k: v for k, v in params["blocks"].items()})
     mine = model.params()
@@ -54,9 +57,9 @@ def lm_params_from_reference(params: dict, model: LMModel) -> LMModel:
                        "do not match the model's")
     for name, p in mine.items():
         src = _tensor(flat[name], p.device)
-        if src.shape != p.shape:
-            raise ValueError(f"{name}: reference shape {tuple(src.shape)}, "
-                             f"model {tuple(p.shape)}")
+        if src.shape != p.shape or src.dtype != p.dtype:
+            raise ValueError(f"{name}: reference {tuple(src.shape)} {src.dtype}, "
+                             f"model {tuple(p.shape)} {p.dtype}")
         p.copy_(src)
     return model
 

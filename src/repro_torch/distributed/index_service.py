@@ -60,6 +60,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.builder import LITSBuilder
+from repro_torch.distributed.sharding import axes_extent
 from repro_torch.core.hpt import get_cdf, get_cdf_np64
 from repro_torch.core.strings import StringSet, sort_order
 from repro_torch.core.tensor_index import (
@@ -151,10 +152,13 @@ def _slice_shard(stacked: TensorIndex, s: int, device=None) -> TensorIndex:
 def _exchange(t: torch.Tensor, group) -> torch.Tensor:
     """The all_to_all: ``(a, b, C, ...) -> (b, a, C, ...)``.  In one process
     it is the transpose; across a group each rank holds its own row of the
-    first axis (``a == 1``) and receives its row of the second."""
+    first axis (``a == 1``) and receives its row of the second.  The receive
+    buffer starts zeroed: over torch's fake process group (the dry-run) no
+    collective moves data, and the owners then search empty rows rather
+    than whatever the buffer held."""
     if group is None:
         return t.transpose(0, 1).contiguous()
-    out = torch.empty_like(t[0])
+    out = torch.zeros_like(t[0])
     dist.all_to_all_single(out, t[0].contiguous(), group=group)
     return out[None]
 
@@ -167,10 +171,21 @@ class RoutedLookup:
     dropped rows.  ``shards`` are the shards this process holds, by id."""
 
     def __init__(self, shards: dict, boundaries: torch.Tensor, n_shards: int,
-                 per_dest_capacity: int, group=None):
+                 per_dest_capacity: int, group=None, mesh=None,
+                 shard_axes: Sequence[str] = ()):
         self.shards, self.boundaries = shards, boundaries
         self.n, self.C, self.group = n_shards, per_dest_capacity, group
         self.senders = n_shards if group is None else 1
+        self.mesh, self.shard_axes = mesh, tuple(shard_axes)
+
+    def local_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the query rows ``t`` (a leading row dim), split
+        over the mesh axes ``shard_axes`` as the reference's ``P(shard_axes)``
+        splits them; ``t`` itself without them."""
+        if not self.shard_axes:
+            return t
+        n, j = axes_extent(self.shard_axes, self.mesh)
+        return torch.chunk(t, n, dim=0)[j]
 
     def __call__(self, qbytes: torch.Tensor, qlens: torch.Tensor):
         n, C, S = self.n, self.C, self.senders
@@ -217,12 +232,23 @@ class RoutedLookup:
 
 
 def make_service_fn(sidx: ShardedIndex, per_dest_capacity: int = 256, group=None,
-                    device=None) -> RoutedLookup:
+                    device=None, *, mesh=None, axis: str = "data",
+                    shard_axes: Optional[Sequence[str]] = None) -> RoutedLookup:
     """The routed lookup over ``sidx`` (:class:`RoutedLookup`).  With
-    ``group=None`` it holds every shard; with a process group of
-    ``n_shards`` ranks, rank ``r`` holds shard ``r``.  The shards go to
-    ``device`` (default: where ``sidx`` is)."""
+    ``group=None`` and no ``mesh`` it holds every shard; with a process group
+    of ``n_shards`` ranks, rank ``r`` holds shard ``r``.  With a ``mesh``
+    (a ``torch.distributed`` device mesh, as the reference's
+    ``make_service_fn(sidx, mesh, axis, shard_axes=...)`` takes one) the
+    index is partitioned over the mesh axis ``axis``, whose group routes the
+    rows, and replicated over its other axes: each rank holds the shard of
+    its coordinate on ``axis``, and the query rows are split over
+    ``shard_axes`` (default ``(axis,)``; extra axes act as serving replicas,
+    ``RoutedLookup.local_rows``).  The shards go to ``device`` (default:
+    where ``sidx`` is)."""
     n = sidx.n_shards
+    if mesh is not None:
+        group = mesh.get_group(axis)
+        shard_axes = (axis,) if shard_axes is None else tuple(shard_axes)
     if group is not None and dist.get_world_size(group) != n:
         raise ValueError(f"the group has {dist.get_world_size(group)} ranks; the index "
                          f"has {n} shards and needs one rank per shard")
@@ -230,7 +256,7 @@ def make_service_fn(sidx: ShardedIndex, per_dest_capacity: int = 256, group=None
     local = range(n) if group is None else [dist.get_rank(group)]
     shards = {s: _slice_shard(sidx.stacked, s, dev) for s in local}
     return RoutedLookup(shards, torch.from_numpy(sidx.boundaries).to(dev), n,
-                        per_dest_capacity, group)
+                        per_dest_capacity, group, mesh, shard_axes or ())
 
 
 def _padded_window(ti: TensorIndex, m: int, qbytes, qlens, eids, valid, window: int):

@@ -144,6 +144,16 @@ def axis_index(axis: str, mesh: Optional[DeviceMesh] = None) -> int:
     return mesh.get_local_rank(axis)
 
 
+def axes_extent(axes: Sequence[str], mesh: Optional[DeviceMesh] = None) -> Tuple[int, int]:
+    """(the number of ranks over the mesh axes ``axes`` of ``mesh`` (the
+    active one by default), this rank's index among them, the major axis
+    first as a PartitionSpec splits a dim); (1, 0) for none."""
+    n, j = 1, 0
+    for a in axes:
+        n, j = n * axis_size(a, mesh), j * axis_size(a, mesh) + axis_index(a, mesh)
+    return n, j
+
+
 def local_chunk(t: torch.Tensor, place: Sequence, mesh: Optional[DeviceMesh] = None):
     """This rank's piece of the whole tensor ``t`` under ``place``: split
     along each sharded dim in mesh-dim order by ``torch.chunk``, a rank past
@@ -205,25 +215,27 @@ def psum(x: torch.Tensor, axes: Sequence[str],
     return x
 
 
+def _sum_over(x: torch.Tensor, groups) -> torch.Tensor:
+    """A copy of ``x`` summed over each process group in turn; a bf16 tensor
+    is summed in float32 and rounded once, as the reference's partitioner
+    on the CPU sums its bf16 all-reduces (XLA promotes them to float32)."""
+    y = x.float() if x.dtype == torch.bfloat16 else x.clone()
+    for g in groups:
+        dist.all_reduce(y, group=g)
+    return y.to(x.dtype)
+
+
 class _AllReduce(torch.autograd.Function):
     """A sum over process groups in the forward and/or the backward."""
 
     @staticmethod
     def forward(ctx, x, groups, fwd: bool, bwd: bool):
         ctx.groups, ctx.bwd = groups, bwd
-        x = x.clone()
-        if fwd:
-            for g in groups:
-                dist.all_reduce(x, group=g)
-        return x
+        return _sum_over(x, groups) if fwd else x.clone()
 
     @staticmethod
     def backward(ctx, ct):
-        ct = ct.clone()
-        if ctx.bwd:
-            for g in ctx.groups:
-                dist.all_reduce(ct, group=g)
-        return ct, None, None, None
+        return (_sum_over(ct, ctx.groups) if ctx.bwd else ct.clone()), None, None, None
 
 
 def all_reduce(x: torch.Tensor, axes: Sequence[str], *, forward: bool = True,
@@ -244,3 +256,148 @@ def all_reduce(x: torch.Tensor, axes: Sequence[str], *, forward: bool = True,
     if not groups:
         return x
     return _AllReduce.apply(x, groups, forward, backward)
+
+
+def pmax(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """The elementwise max of ``x`` over the mesh axes ``axes``, outside
+    autograd."""
+    groups = _groups(axes)
+    if not groups:
+        return x
+    x = x.detach().clone()
+    for g in groups:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# dense tensor parallelism over ``model``
+# ---------------------------------------------------------------------------
+#
+# Each ``model`` rank computes its share of the dense work at the reference's
+# "tp" points: the columns of a weight split ("fsdp", "tp") and the rows of
+# one split ("tp", "fsdp"), so that a rank holds H/m heads, f/m hidden units,
+# d_inner/m mamba channels and V/m vocabulary entries.  Activations outside
+# those regions are whole on every ``model`` rank.  Every rank backpropagates
+# its own copy of the loss, so a region is entered through ``tp_enter`` (the
+# identity forward, the cotangent summed over ``model``: each rank's only
+# reaches its own share) and left through ``tp_exit`` (the partial products
+# summed forward, the identity backward).  On a mesh whose ``model`` axis has
+# one rank the sums still go through the axis's process group.
+
+def tp_size() -> int:
+    """The ``model`` axis size of the active mesh (1 without one)."""
+    mesh = get_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return 1
+    return axis_size("model", mesh)
+
+
+def tp_rank() -> int:
+    """This rank's coordinate on ``model`` (0 without a mesh)."""
+    return axis_index("model") if tp_size() > 1 else 0
+
+
+def _tp_group() -> list:
+    mesh = get_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return []
+    return [mesh.get_group("model")]
+
+
+def _tp_all_reduce(x: torch.Tensor, forward: bool, backward: bool) -> torch.Tensor:
+    groups = _tp_group()
+    return _AllReduce.apply(x, groups, forward, backward) if groups else x
+
+
+def tp_enter(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whole on every ``model`` rank, entering a split region: the
+    identity forward, the cotangent summed over ``model``."""
+    return _tp_all_reduce(x, False, True)
+
+
+def tp_exit(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' partial products of a split region summed over ``model``;
+    the identity backward."""
+    return _tp_all_reduce(x, True, False)
+
+
+def tp_sum(x: torch.Tensor) -> torch.Tensor:
+    """A partial product summed over ``model`` that each rank then uses only
+    in its own share (mamba's ``x_proj`` output): a sum both ways."""
+    return _tp_all_reduce(x, True, True)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` along dim 0 with split sizes; the backward sends
+    the cotangents back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group, out_splits, in_splits):
+        ctx.group, ctx.splits = group, (out_splits, in_splits)
+        out = x.new_empty((sum(out_splits),) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, x.contiguous(), out_splits, in_splits, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        out_splits, in_splits = ctx.splits
+        back = ct.new_empty((sum(in_splits),) + tuple(ct.shape[1:]))
+        dist.all_to_all_single(back, ct.contiguous(), in_splits, out_splits, group=ctx.group)
+        return back, None, None, None
+
+
+def tp_halves(xz: torch.Tensor):
+    """``(xs, z)``, this rank's channels of both halves of a product against
+    a ``(d, 2·C)`` weight split ``(·, "tp")`` (mamba's ``in_proj``, whose
+    columns are ``[xs | z]``).  The weight is stored in column chunks, so
+    over m > 1 ranks rank s's product holds channel chunks 2s and 2s + 1 of
+    ``xs`` (s < m/2) or of ``z`` (s >= m/2); one all-to-all over ``model``
+    sends each chunk to the rank whose channels it holds: the activations
+    move, not the weight.  Without a split, ``xz``'s two halves."""
+    m = tp_size()
+    if m == 1:
+        return torch.chunk(xz, 2, dim=-1)
+    r, half = tp_rank(), m // 2
+    q = xz.shape[-1] // 2
+    dest = 2 * r - (m if r >= half else 0)
+    send = xz.reshape(-1, 2, q).transpose(0, 1)             # (2, rows, q)
+    in_splits = [1 if i in (dest, dest + 1) else 0 for i in range(m)]
+    out_splits = [1 if i in (r // 2, half + r // 2) else 0 for i in range(m)]
+    got = _AllToAll.apply(send, _tp_group()[0], out_splits, in_splits)
+    xs, z = (t.reshape(xz.shape[:-1] + (q,)) for t in got)
+    return xs, z
+
+
+def tp_piece(w: torch.Tensor, logical: Sequence[Optional[str]], *,
+             whole: bool = False) -> torch.Tensor:
+    """The piece of weight ``w`` (laid out by ``logical``) this rank computes
+    with: gathered over the fsdp axes, and split over ``model`` along its
+    ``"tp"`` dim as it is stored, or with ``whole`` gathered whole (the rank
+    then takes what it needs).  Its gradient goes back summed over the batch
+    axes, kept split over ``model``, or, for a ``whole`` piece, summed over
+    ``model`` too; a weight with no ``"tp"`` dim is used alike by every
+    ``model`` rank, which all hold its whole gradient.  A plain tensor is
+    every rank's whole copy: its ``model`` piece is a slice.  Without a mesh,
+    ``w`` itself."""
+    mesh = get_mesh()
+    if mesh is None:
+        return w
+    tp_dim = list(logical).index("tp") if "tp" in logical else None
+    split = tp_dim is not None and not whole
+    if not isinstance(w, DTensor):
+        if not split:
+            return w
+        return local_chunk(w, placements([("model",) if i == tp_dim else None
+                                          for i in range(w.dim())], mesh), mesh)
+    batch = rules().batch
+    place, grad = [], []
+    for a in mesh.mesh_dim_names:
+        if a == "model" and split:
+            place.append(Shard(tp_dim))
+            grad.append(Shard(tp_dim))
+        else:
+            place.append(Replicate())
+            partial = a in batch or (a == "model" and tp_dim is not None)
+            grad.append(Partial() if partial else Replicate())
+    return w.redistribute(mesh, place).to_local(grad_placements=grad)

@@ -57,19 +57,22 @@ def make_train_step(model: LMModel, opt_cfg: opt_mod.AdamWConfig, accum: int = 1
                     grad_dtype=torch.float32):
     """Train step with gradient accumulation over ``accum`` microbatches (the
     batch's rows cut into ``accum`` consecutive groups).  The gradients are
-    summed in the reference's order, ``0 + g1 + g2 ...``, in the parameters'
-    ``.grad`` buffers, then divided by ``accum``; the metrics are the
+    summed in the reference's order, ``0 + g1 + g2 ...``, in ``grad_dtype``,
+    then divided by ``accum``: in the parameters' ``.grad`` buffers where
+    ``grad_dtype`` is their dtype (autograd sums each microbatch's gradient
+    into them in place), else in accumulators of ``grad_dtype``, each
+    microbatch's gradient cast into them (with ``accum`` = 1 the gradient is
+    taken as it is, as the reference takes it).  The metrics are the
     microbatches' mean, then the optimizer's.  Under a mesh each rank runs
     its rows of every microbatch (``local_rows``) and the step is the global
     one: the loss over every rank's tokens, the gradients summed over the
-    batch axes into the shards (``sharding.gather``), the norm over every
+    batch axes into the shards (``sharding.tp_piece``), the norm over every
     shard."""
-    if grad_dtype != torch.float32:
-        raise ValueError(f"grad_dtype {grad_dtype}: the port accumulates in the float32 "
-                         "parameters' .grad (bf16 parameters come with the multi-card slice)")
-
     def train_step(opt_state, batch):
+        params = list(model.parameters())   # place() may have replaced them
+        in_grads = accum == 1 or all(p.dtype == grad_dtype for p in params)
         zero_grads(model)
+        acc = None if in_grads else [torch.zeros_like(p, dtype=grad_dtype) for p in params]
         ms = []
         for i in range(accum):
             mb = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[i]
@@ -77,13 +80,19 @@ def make_train_step(model: LMModel, opt_cfg: opt_mod.AdamWConfig, accum: int = 1
             loss, metrics = model.loss(local_rows(mb))
             loss.backward()
             ms.append(metrics)
+            if acc is not None:
+                for a, p in zip(acc, params):
+                    a.add_(p.grad.to(grad_dtype))
+                    p.grad.zero_()
         metrics = {k: torch.stack([m[k] for m in ms]).mean(0) for k in ms[0]}
+        summed = [p.grad for p in params] if acc is None else acc
         if accum > 1:
-            for p in model.parameters():
-                p.grad.div_(accum)
-        params = model.param_tree()
-        grads = _tree.map_with_path(lambda _, p: p.grad, params)
-        _, opt_state, om = opt_mod.apply_updates(params, grads, opt_state, opt_cfg)
+            for g in summed:
+                g.div_(accum)
+        grad_of = {id(p): g for p, g in zip(params, summed)}
+        tree = model.param_tree()
+        grads = _tree.map_with_path(lambda _, p: grad_of[id(p)], tree)
+        _, opt_state, om = opt_mod.apply_updates(tree, grads, opt_state, opt_cfg)
         metrics.update(om)
         return opt_state, metrics
 

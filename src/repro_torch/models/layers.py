@@ -25,7 +25,10 @@ saves the reference's.
 
 With a mesh, ``moe_apply`` is the reference's expert-parallel ``shard_map``
 body in explicit collectives over the mesh's process groups
-(``distributed/sharding``).
+(``distributed/sharding``); ``mlp_apply`` takes this rank's columns of
+``wi0``/``wi1`` and rows of ``wo`` and sums its partial output over
+``model`` (dense tensor parallelism), and ``decode_attention`` over a window
+split across ranks combines their softmax partials.
 """
 from __future__ import annotations
 
@@ -271,23 +274,37 @@ def decode_attention(
     pos: int,               # absolute position of the new token
     *,
     window: int = 0,
+    seq_axes: Sequence[str] = (),
 ) -> torch.Tensor:
+    """Attention of one new token over its cache.  With ``seq_axes`` the
+    window is split over those mesh axes, this rank holding its consecutive
+    slots: the scores' max and the exponentials' sum are reduced over them,
+    each rank weighs its values by its normalised probabilities, and the
+    weighted values are summed."""
     B, W, KV, hd = k_cache.shape
     H = q.shape[1]
     g = H // KV
     scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(B, KV, g, hd)
     s = _f32_product("bkgh,bwkh->bkgw", qg, k_cache) * scale
-    slot = torch.arange(W, dtype=torch.int64, device=q.device)
+    n, j = sharding.axes_extent(seq_axes)
+    slot = j * W + torch.arange(W, dtype=torch.int64, device=q.device)
     if window:
         # slot w holds absolute position p = pos - ((pos - w) mod W), valid if p >= 0
-        p = pos - torch.remainder(pos - slot, W)
+        p = pos - torch.remainder(pos - slot, W * n)
         valid = (p >= 0) & (p <= pos)
     else:
         valid = slot <= pos
     s = torch.where(valid[None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = _f32_product("bkgw,bwkh->bkgh", p.to(v_cache.dtype), v_cache)
+    if n == 1:
+        p = torch.softmax(s, dim=-1)
+        out = _f32_product("bkgw,bwkh->bkgh", p.to(v_cache.dtype), v_cache)
+    else:
+        smax = sharding.pmax(s.amax(dim=-1), seq_axes)
+        e = torch.exp(s - smax[..., None])
+        p = e / sharding.psum(e.sum(dim=-1), seq_axes)[..., None]
+        out = sharding.psum(_f32_product("bkgw,bwkh->bkgh", p.to(v_cache.dtype), v_cache),
+                            seq_axes)
     return out.reshape(B, H, hd).to(q.dtype)
 
 
@@ -307,12 +324,15 @@ def _act(a: torch.Tensor, act: str, dtype) -> torch.Tensor:
 
 
 def mlp_apply(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
+    """The MLP on this rank's hidden units (all of them without a mesh): its
+    partial output summed over ``model``."""
+    x = sharding.tp_enter(x)
     a = x @ p["wi0"]
     h = _act(a, act, x.dtype)
     if act == "swiglu":
         h = h * (x @ p["wi1"])
     h = sharding.constrain(h, "batch", None, "tp")
-    return h @ p["wo"]
+    return sharding.tp_exit(h @ p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -366,11 +386,16 @@ def _moe_dispatch_compute(xt, logits, e0: int, E_loc: int, p_wi0, p_wi1, p_wo, *
     pos = torch.arange(T * top_k, dtype=torch.int64, device=dev) - first
     keep = (so < E_loc) & (pos < C)
     # gather-only dispatch: (E_loc, C) source-token ids, then one local gather;
-    # the reference's out-of-range writes (mode="drop") are exactly ~keep
-    ids = torch.zeros((E_loc, C), dtype=torch.int64, device=dev)
-    valid = torch.zeros((E_loc, C), dtype=torch.bool, device=dev)
-    ids[so[keep], pos[keep]] = ts[keep]
-    valid[so[keep], pos[keep]] = True
+    # the reference's out-of-range writes (mode="drop") are exactly ~keep,
+    # sent to a spare row and column that are cut off (no boolean indexing,
+    # whose output size depends on the data)
+    row = torch.where(keep, so, E_loc)
+    col = torch.where(keep, pos, C)
+    ids = torch.zeros((E_loc + 1, C + 1), dtype=torch.int64, device=dev)
+    valid = torch.zeros((E_loc + 1, C + 1), dtype=torch.bool, device=dev)
+    ids[row, col] = ts
+    valid[row, col] = keep
+    ids, valid = ids[:E_loc, :C], valid[:E_loc, :C]
     xe = xt[ids] * valid[..., None].to(xt.dtype)
     ye = _moe_expert_compute(xe, p_wi0, p_wi1, p_wo, act, xt.dtype)
     if psum_axes:

@@ -9,6 +9,13 @@ boundary states.  The steps and their order are the same with or without
 the chunks.
 Decode path: the O(1) single-token state update.
 
+Under a mesh both run on this rank's ``d_inner/m`` channels (the weights
+come as the model's ``_local_params`` gives them): ``in_proj``'s product on
+this rank's stored columns is exchanged over ``model`` into its channels of
+``xs`` and of ``z`` (``sharding.tp_halves``), ``x_proj``'s partial product
+is summed over ``model`` both ways (every rank uses the sum in its own
+channels), ``out_proj``'s forward only.
+
 ``softplus`` is ``logaddexp(x, 0)``, the reference's ``jax.nn.softplus``
 (``torch.nn.functional.softplus`` switches to the identity past 20).
 """
@@ -18,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, tp_enter, tp_exit, tp_halves, tp_sum
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -73,9 +80,9 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg, h0=None, conv_state=None,
                   return_state: bool = False):
     """Full-sequence mamba block. x: (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
-    di, N, dtr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-    xz = x @ p["in_proj"]
-    xs, z = torch.chunk(xz, 2, dim=-1)
+    di, N, dtr = p["A_log"].shape[0], cfg.ssm_state, cfg.dt_rank
+    x = tp_enter(x)
+    xs, z = tp_halves(x @ p["in_proj"])
     xs = constrain(xs, "batch", None, "tp")
     if conv_state is not None:
         xs_ext = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
@@ -83,7 +90,7 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg, h0=None, conv_state=None,
     else:
         conv_full = _causal_conv(xs, p["conv_w"], p["conv_b"])
     u = F.silu(conv_full.float()).to(x.dtype)
-    xdbl = u @ p["x_proj"]
+    xdbl = tp_sum(u @ p["x_proj"])
     dt_in, Bc, Cc = torch.split(xdbl, [dtr, N, N], dim=-1)
     dt = _softplus(
         (dt_in @ p["dt_proj"]).float() + p["dt_bias"].float()
@@ -93,7 +100,7 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg, h0=None, conv_state=None,
         h0 = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
     y, h = _ssm_inner(u, dt, Bc, Cc, A, p["D"], h0)
     y = y * F.silu(z.float()).to(x.dtype)
-    out = y @ p["out_proj"]
+    out = tp_exit(y @ p["out_proj"])
     if return_state:
         ck = cfg.ssm_conv
         new_conv = (xs if conv_state is None else xs_ext)[:, -(ck - 1):, :]
@@ -105,13 +112,13 @@ def mamba_decode_step(x_t: torch.Tensor, p: dict, cfg, h: torch.Tensor,
                       conv_state: torch.Tensor):
     """Single-token update. x_t: (B, d); h: (B, di, N) f32; conv_state: (B, ck-1, di)."""
     dtr, N = cfg.dt_rank, cfg.ssm_state
-    xz = torch.einsum("bd,de->be", x_t, p["in_proj"])
-    xs, z = torch.chunk(xz, 2, dim=-1)  # (B, di)
+    x_t = tp_enter(x_t)
+    xs, z = tp_halves(torch.einsum("bd,de->be", x_t, p["in_proj"]))  # (B, di)
     win = torch.cat([conv_state.to(xs.dtype), xs[:, None, :]], dim=1)  # (B, ck, di)
     conv = torch.einsum("bkd,kd->bd", win.float(), p["conv_w"].float())
     conv = conv + p["conv_b"].float()
     u = F.silu(conv).to(x_t.dtype)  # (B, di)
-    xdbl = torch.einsum("bi,ie->be", u, p["x_proj"])
+    xdbl = tp_sum(torch.einsum("bi,ie->be", u, p["x_proj"]))
     dt_in, Bc, Cc = torch.split(xdbl, [dtr, N, N], dim=-1)
     dt = _softplus(
         torch.einsum("br,ri->bi", dt_in, p["dt_proj"]).float() + p["dt_bias"].float()
@@ -123,5 +130,5 @@ def mamba_decode_step(x_t: torch.Tensor, p: dict, cfg, h: torch.Tensor,
     y = torch.einsum("bdn,bn->bd", h, Cc.float()).to(x_t.dtype)
     y = y + u * p["D"].to(x_t.dtype)[None, :]
     y = y * F.silu(z.float()).to(x_t.dtype)
-    out = torch.einsum("bi,id->bd", y, p["out_proj"])
+    out = tp_exit(torch.einsum("bi,id->bd", y, p["out_proj"]))
     return out, h, win[:, 1:, :]

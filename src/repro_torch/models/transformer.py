@@ -6,11 +6,16 @@ SWA), MoE (top-k, optional parallel dense residual — arctic), mamba-1 SSM
 (attention-free), hybrid parallel attn+mamba (hymba), encoder-only backbones
 (hubert) and VLM backbones with stub patch frontends (internvl2).
 
-The parameters keep the reference's table and layout: float32, the layer
+The parameters keep the reference's table and layout: ``param_dtype``
+(float32 by default, bf16 as the reference's large and serving cells take
+them, drawn in float32 and cast as the reference's are), the layer
 parameters stacked on a leading ``L`` dim under the reference's names
 (``blocks["attn.wq"]`` is the ``(L, d, H·hd)`` tensor; the module stores it
 as ``blocks["attn__wq"]``, since a module name cannot hold a dot), cast to
-bf16 one layer at a time as they are used.  The decode cache keeps the
+bf16 one layer at a time as they are used.  ``LMModel(..., init=False)``
+allocates them uninitialised: on the ``meta`` device or under
+``FakeTensorMode`` nothing is allocated (the counterpart of the
+reference's ``abstract_params``; the dry-run builds arctic-480b so).  The decode cache keeps the
 reference's stacked layout and dtypes: ``k``/``v`` ``(L, B, S, KV, hd)`` in
 bf16, or int8 with bf16 ``k_scale``/``v_scale``; ``ssm`` float32 and
 ``conv`` bf16.  ``decode_step`` writes the new token's state into that cache
@@ -29,13 +34,22 @@ gradient into its slice: no per-layer gradient of the whole stack.
 Under a mesh (``distributed/sharding.set_mesh``) the parameters are
 DTensors laid out by ``param_specs`` (``launch/steps.place``), each rank
 holding its shards, and every entry point takes this rank's rows of the
-batch.  A layer's weights are gathered whole in bf16 as it runs, their
-gradients reduce-scattered back (``sharding.gather``): the reference's
-all-gather of FSDP shards, applied to every dense weight, with the dense
-activations replicated over ``model`` (the ``"tp"`` constraints are no-ops
-on plain tensors).  The experts go through ``moe_apply``'s expert-parallel
-path.  The loss is the masked sum of every rank's tokens over the global
-token count, as the reference's GSPMD step computes it.
+batch.  A layer's weights are gathered over the fsdp axes in bf16 as it
+runs, their gradients reduce-scattered back (``sharding.tp_piece``), and
+split over ``model`` at the reference's ``"tp"`` points (dense tensor
+parallelism, ``sharding.tp_enter``/``tp_exit``): each ``model`` rank holds
+and computes H/m query heads and their KV heads (a rank takes the KV head
+its query heads read where m does not divide KV), f/m MLP units, d_inner/m
+mamba channels (``in_proj``'s product exchanged into each rank's channels
+of ``xs`` and ``z``) and V/m
+vocabulary entries: the embedding lookup is vocabulary-parallel, the logits
+stay split by vocabulary and the loss is a vocabulary-parallel log-softmax.
+The caches hold each rank's KV heads and channels, as ``cache_shardings``
+lays them out; a decode cache whose window is split over the batch axes
+(B = 1) combines each rank's softmax partials (``decode_step(seq_axes=)``).
+The experts go through ``moe_apply``'s expert-parallel path.  The loss is
+the masked sum of every rank's tokens over the global token count, as the
+reference's GSPMD step computes it.
 """
 from __future__ import annotations
 
@@ -52,8 +66,9 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import (constrain, gather, get_mesh, mesh_scope, psum,
-                                              rules)
+from repro_torch.distributed.sharding import (
+    axes_extent, constrain, gather, get_mesh, mesh_scope, pmax, psum, rules, tp_enter,
+    tp_exit, tp_piece, tp_rank, tp_size)
 from repro_torch.distributed.sharding import spec as logical_spec
 from repro_torch.kernels._build import resolve_device
 
@@ -112,33 +127,29 @@ def _layer_dtensor(stacked: DTensor, piece: torch.Tensor) -> DTensor:
                               shape=shape, stride=stacked.stride()[1:])
 
 
-def _gather_dense(p: dict) -> dict:
-    """A layer's (cast) parameters with every dense weight whole
-    (``sharding.gather``); the MoE's stay as they are, for ``moe_apply``'s
-    expert-parallel path."""
-    return {k: v if k.startswith("moe.") else gather(v) for k, v in p.items()}
-
-
 class LMModel(nn.Module):
-    """The model, its parameters on ``device`` (``cuda`` unless the caller
-    asks for ``cpu``), initialised from ``generator`` (a generator on that
-    device, seeded 0 when none is given)."""
+    """The model, its parameters of ``param_dtype`` on ``device`` (``cuda``
+    unless the caller asks for ``cpu``), initialised from ``generator`` (a
+    generator on that device, seeded 0 when none is given), or left
+    uninitialised with ``init=False``."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: ArchConfig, device="cuda", param_dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None, init: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.param_dtype = param_dtype
         dev = resolve_device(device)
 
         def empty(shape):
-            return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=dev))
+            return nn.Parameter(torch.empty(shape, dtype=param_dtype, device=dev))
 
         self.top = nn.ParameterDict({n: empty(pd.shape) for n, pd in self.top_defs().items()})
         self.blocks = nn.ParameterDict({
             _key(n): empty((cfg.n_layers,) + pd.shape) for n, pd in self.layer_defs().items()})
-        if generator is None:
-            generator = torch.Generator(dev).manual_seed(0)
-        self.init(generator)
+        if init:
+            if generator is None:
+                generator = torch.Generator(dev).manual_seed(0)
+            self.init(generator)
 
     @property
     def device(self) -> torch.device:
@@ -230,7 +241,7 @@ class LMModel(nn.Module):
     def abstract_params(self) -> dict:
         """The parameter tree's shapes and dtypes as meta tensors."""
         def meta(shape):
-            return torch.empty(shape, dtype=torch.float32, device="meta")
+            return torch.empty(shape, dtype=self.param_dtype, device="meta")
 
         out = {n: meta(pd.shape) for n, pd in self.top_defs().items()}
         out["blocks"] = {n: meta((self.cfg.n_layers,) + pd.shape)
@@ -274,7 +285,8 @@ class LMModel(nn.Module):
     def init(self, generator: torch.Generator) -> "LMModel":
         """The reference's initialisers, drawn in its order (top parameters,
         then the layers'): normal·1/√fan_in, zeros, ones, dt_bias -4, and
-        a_log log(1..N)."""
+        a_log log(1..N), each computed in float32 and cast to the
+        parameters' dtype (so a bf16 model is its float32 twin, cast)."""
         defs = list(self.top_defs().items()) + list(self.layer_defs().items())
         for name, pd in defs:
             p = self.top[name] if name in self.top else self.blocks[_key(name)]
@@ -290,16 +302,81 @@ class LMModel(nn.Module):
                                                device=p.device)).expand(p.shape))
             else:
                 fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
-                p.normal_(generator=generator).mul_(1.0 / math.sqrt(max(fan_in, 1)))
+                w = p if p.dtype == torch.float32 else torch.empty(
+                    p.shape, dtype=torch.float32, device=p.device)
+                w.normal_(generator=generator).mul_(1.0 / math.sqrt(max(fan_in, 1)))
+                if w is not p:
+                    p.copy_(w)
         return self
+
+    # ------------------------------------------------------------------
+    # tensor parallelism over ``model``
+    # ------------------------------------------------------------------
+    def _check_tp(self) -> None:
+        """Every dim the reference splits over ``"tp"`` must split evenly
+        over the ``model`` axis (the KV heads aside: where m does not divide
+        them, each rank takes the one its query heads read)."""
+        c, m = self.cfg, tp_size()
+        if m == 1:
+            return
+        dims = {"vocab_padded": c.vocab_padded}
+        if c.has_attn:
+            dims["n_heads_padded"] = c.n_heads_padded
+        if c.has_mamba:
+            dims["d_inner"] = c.d_inner
+        if c.has_moe and c.moe_dense_ff:
+            dims["moe_dense_ff"] = c.moe_dense_ff
+        elif not c.has_moe and c.d_ff:
+            dims["d_ff"] = c.d_ff
+        bad = {k: v for k, v in dims.items() if v % m}
+        if c.has_mamba and m % 2:
+            bad["an odd model axis (in_proj's halves pair its ranks)"] = m
+        if c.has_attn and c.n_kv_padded % m and (
+                c.n_heads_padded // c.n_kv_padded) % max(c.n_heads_padded // m, 1):
+            bad["query heads a rank across KV groups"] = c.n_heads_padded // m
+        if bad:
+            raise ValueError(f"{c.name}: {bad} do not split over a model axis of {m}")
+
+    def _kv_whole(self) -> bool:
+        """Whether m does not divide the KV heads, so that each rank computes
+        them whole and keeps the one its query heads read."""
+        return self.cfg.n_kv_padded % tp_size() != 0
+
+    def _local_params(self, p: dict) -> dict:
+        """A layer's (cast) parameters as this rank computes with them
+        (``sharding.tp_piece``): the fsdp shards gathered, the ``"tp"`` dims
+        split over ``model`` as they are stored (``in_proj``'s product is
+        then exchanged into this rank's channels of ``xs`` and ``z``:
+        ``sharding.tp_halves``).  Where m does not divide the KV heads,
+        ``wk``/``wv`` are gathered whole and each rank takes the KV head of
+        its query heads.  The experts stay as they are, for ``moe_apply``'s
+        expert-parallel path."""
+        defs = self.layer_defs()
+        m, r = tp_size(), tp_rank()
+        out = {}
+        for k, v in p.items():
+            logical = defs[k].logical
+            if k.startswith("moe."):
+                out[k] = v
+            elif k in ("attn.wk", "attn.wv") and self._kv_whole():
+                c = self.cfg
+                kv = r * (c.n_heads_padded // m) // (c.n_heads_padded // c.n_kv_padded)
+                out[k] = tp_piece(v, logical, whole=True)[:, kv * c.hd:(kv + 1) * c.hd]
+            else:
+                out[k] = tp_piece(v, logical)
+        return out
 
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
     def _attn_train(self, p, h, positions, return_kv: bool = False):
+        """Attention over this rank's heads (all of them without a mesh):
+        its partial output summed over ``model``."""
         c = self.cfg
         B, S, d = h.shape
-        H, KV, hd = c.n_heads_padded, c.n_kv_padded, c.hd
+        hd = c.hd
+        H, KV = p["attn.wq"].shape[-1] // hd, p["attn.wk"].shape[-1] // hd
+        h = tp_enter(h)
         q = (h @ p["attn.wq"]).reshape(B, S, H, hd)
         k = (h @ p["attn.wk"]).reshape(B, S, KV, hd)
         v = (h @ p["attn.wv"]).reshape(B, S, KV, hd)
@@ -309,7 +386,7 @@ class LMModel(nn.Module):
         k = apply_rope(k, positions, c.rope_variant)
         o = flash_attention(q, k, v, causal=c.causal, window=c.swa_window)
         o = constrain(o, "batch", None, "tp", None)
-        out = o.reshape(B, S, H * hd) @ p["attn.wo"]
+        out = tp_exit(o.reshape(B, S, H * hd) @ p["attn.wo"])
         if not return_kv:
             return out
         if c.swa_window:
@@ -350,7 +427,7 @@ class LMModel(nn.Module):
         """One layer over the whole sequence: (x, the decode state it leaves)
         where ``keep_state`` (prefill), else (x, None)."""
         c = self.cfg
-        p = _gather_dense(cast_tree(p))
+        p = self._local_params(cast_tree(p))
         h = rms_norm(x, p["ln1"], c.norm_eps)
         state = {}
         if c.has_attn:
@@ -374,6 +451,20 @@ class LMModel(nn.Module):
     # ------------------------------------------------------------------
     # embedding / head
     # ------------------------------------------------------------------
+    def _embed_rows(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of the embedding ``table`` (the parameter, or it
+        cast).  Over a ``model`` axis of m > 1 the lookup is
+        vocabulary-parallel: each rank gathers the ids in its V/m rows, the
+        others masked to zero, and the rows are summed over ``model``."""
+        piece = tp_piece(table, self.top_defs()["embed"].logical)
+        if tp_size() == 1:
+            return piece[ids.long()]
+        rows = piece.shape[0]
+        local = ids.long() - tp_rank() * rows
+        own = (local >= 0) & (local < rows)
+        got = piece[local.clamp(0, rows - 1)] * own[..., None].to(piece.dtype)
+        return tp_exit(got)
+
     def _embed_inputs(self, batch) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """Returns (x (B,S,d) bf16, positions (B,S), n_prefix_tokens)."""
         c = self.cfg
@@ -385,7 +476,7 @@ class LMModel(nn.Module):
             return constrain(x, "batch", None, None), pos, 0
         # the whole table cast, then gathered, as the reference does: the
         # backward sums a repeated token's gradients in bf16
-        emb = gather(self.top["embed"].to(ACT_DTYPE))[batch["tokens"].long()]
+        emb = self._embed_rows(self.top["embed"].to(ACT_DTYPE), batch["tokens"])
         n_prefix = 0
         if c.frontend == "patch" and "patches" in batch:
             pe = torch.einsum("bpf,fd->bpd", batch["patches"].to(ACT_DTYPE),
@@ -398,10 +489,11 @@ class LMModel(nn.Module):
 
     def _head(self, x) -> torch.Tensor:
         """float32 logits: bf16 activations against the bf16-cast head,
-        multiplied in float32 (the reference's ``preferred_element_type``)."""
-        x = rms_norm(x, gather(self.top["final_ln"]), self.cfg.norm_eps)
-        logits = torch.einsum("bsd,dv->bsv", x.float(),
-                              gather(self.top["lm_head"].to(x.dtype)).float())
+        multiplied in float32 (the reference's ``preferred_element_type``);
+        over a ``model`` axis, this rank's V/m of them."""
+        x = tp_enter(rms_norm(x, gather(self.top["final_ln"]), self.cfg.norm_eps))
+        head = tp_piece(self.top["lm_head"].to(x.dtype), self.top_defs()["lm_head"].logical)
+        logits = torch.einsum("bsd,dv->bsv", x.float(), head.float())
         return constrain(logits, "batch", None, "tp")
 
     # ------------------------------------------------------------------
@@ -411,6 +503,7 @@ class LMModel(nn.Module):
         """Logits (B, S, vocab_padded) float32.  With ``remat`` and gradients
         recorded, each block runs under ``torch.utils.checkpoint``, its
         policy read from ``REPRO_REMAT_POLICY`` as the reference reads it."""
+        self._check_tp()
         x, positions, n_prefix = self._embed_inputs(batch)
         mesh = get_mesh()
 
@@ -440,13 +533,17 @@ class LMModel(nn.Module):
         Under a mesh ``batch`` is this rank's rows: the loss returned is their
         masked sum over the token count of every rank's rows, so that the
         ranks' losses sum to the reference's, and the metrics are the global
-        loss and count."""
+        loss and count.  Over a ``model`` axis of m > 1 the log-softmax is
+        vocabulary-parallel (``_vocab_parallel_ll``)."""
         logits = self.forward(batch, remat=remat)
         labels = batch["labels"]
-        V = logits.shape[-1]
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        safe = torch.clamp(labels.long(), 0, V - 1)
-        ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+        if tp_size() > 1:
+            ll = _vocab_parallel_ll(logits, labels)
+        else:
+            V = logits.shape[-1]
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            safe = torch.clamp(labels.long(), 0, V - 1)
+            ll = torch.gather(logp, -1, safe[..., None])[..., 0]
         mask = (labels >= 0).float()
         r = rules()
         batch_axes = r.batch if r is not None else ()
@@ -463,6 +560,7 @@ class LMModel(nn.Module):
         window-sized ring buffers and never grow).
         """
         c = self.cfg
+        self._check_tp()
         x, positions, _ = self._embed_inputs(batch)
         states = []
         for l in range(c.n_layers):
@@ -489,42 +587,57 @@ class LMModel(nn.Module):
         return cache, logits
 
     @torch.no_grad()
-    def decode_step(self, cache: dict, token: torch.Tensor, pos: int):
+    def decode_step(self, cache: dict, token: torch.Tensor, pos: int, seq_axes=()):
         """One decode step against a pre-filled cache. token: (B,), pos: the
         new token's absolute position.  Writes the token's state into
-        ``cache`` in place and returns (cache, logits (B, vocab_padded))."""
+        ``cache`` in place and returns (cache, logits (B, vocab_padded), over
+        a ``model`` axis this rank's V/m of them).  ``seq_axes`` are the mesh
+        axes the cache's window is split over (``cache_shardings`` where the
+        batch cannot cover the batch axes): this rank holds its consecutive
+        slots of the window, the rank holding the new token's slot writes it,
+        and attention combines every rank's softmax partials."""
         c = self.cfg
+        self._check_tp()
         pos = int(pos)
-        x = gather(self.top["embed"])[token.long()].to(ACT_DTYPE)  # (B, d)
+        x = self._embed_rows(self.top["embed"], token).to(ACT_DTYPE)  # (B, d)
         x = constrain(x, "batch", None)
         B = x.shape[0]
-        H, KV, hd = c.n_heads_padded, c.n_kv_padded, c.hd
+        hd = c.hd
         int8kv = c.kv_cache_dtype == "int8"
+        seq_axes = tuple(seq_axes)
         for l in range(c.n_layers):
-            p = _gather_dense(cast_tree(self.layer(l)))
+            p = self._local_params(cast_tree(self.layer(l)))
             h = rms_norm(x, p["ln1"], c.norm_eps)
             mix = torch.zeros_like(x)
             if c.has_attn:
                 kc, vc = cache["k"][l], cache["v"][l]       # views: (B, W, KV, hd)
                 W = kc.shape[1]
-                q = (h @ p["attn.wq"]).reshape(B, H, hd)
-                kn = (h @ p["attn.wk"]).reshape(B, KV, hd)
-                vn = (h @ p["attn.wv"]).reshape(B, KV, hd)
+                H, KV = p["attn.wq"].shape[-1] // hd, p["attn.wk"].shape[-1] // hd
+                ha = tp_enter(h)
+                q = (ha @ p["attn.wq"]).reshape(B, H, hd)
+                kn = (ha @ p["attn.wk"]).reshape(B, KV, hd)
+                vn = (ha @ p["attn.wv"]).reshape(B, KV, hd)
                 posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
                 q = apply_rope(q[:, None], posb, c.rope_variant)[:, 0]
                 kn = apply_rope(kn[:, None], posb, c.rope_variant)[:, 0]
-                slot = pos % W if c.swa_window else pos
+                n_seq, j = axes_extent(seq_axes)
+                slot = pos % (W * n_seq) if c.swa_window else pos
+                mine = slot // W == j
+                slot -= j * W
                 if int8kv:
                     ksc, vsc = cache["k_scale"][l], cache["v_scale"][l]
-                    kc[:, slot], ksc[:, slot] = quantize_kv(kn)
-                    vc[:, slot], vsc[:, slot] = quantize_kv(vn)
+                    if mine:
+                        kc[:, slot], ksc[:, slot] = quantize_kv(kn)
+                        vc[:, slot], vsc[:, slot] = quantize_kv(vn)
                     o = decode_attention(q, dequantize_kv(kc, ksc), dequantize_kv(vc, vsc),
-                                         pos, window=c.swa_window)
+                                         pos, window=c.swa_window, seq_axes=seq_axes)
                 else:
-                    kc[:, slot] = kn.to(kc.dtype)
-                    vc[:, slot] = vn.to(vc.dtype)
-                    o = decode_attention(q, kc, vc, pos, window=c.swa_window)
-                mix = o.reshape(B, H * hd) @ p["attn.wo"]
+                    if mine:
+                        kc[:, slot] = kn.to(kc.dtype)
+                        vc[:, slot] = vn.to(vc.dtype)
+                    o = decode_attention(q, kc, vc, pos, window=c.swa_window,
+                                         seq_axes=seq_axes)
+                mix = tp_exit(o.reshape(B, H * hd) @ p["attn.wo"])
             if c.has_mamba:
                 m, hs, cs = mamba_decode_step(h, sub_params(p, "mamba"), c, cache["ssm"][l],
                                               cache["conv"][l].to(ACT_DTYPE))
@@ -538,3 +651,24 @@ class LMModel(nn.Module):
             x = self._ffn(p, (x + mix)[:, None], DECODE_CAPACITY_FACTOR)[:, 0]
         logits = self._head(x[:, None, :])[:, 0]
         return cache, logits
+
+
+def _vocab_parallel_ll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The log-probability of each label under the float32 log-softmax of
+    logits split by vocabulary over ``model`` (this rank holds V/m
+    columns): the max over every rank's columns (no gradient, as the
+    reference's log-softmax stops it), the sum of exponentials and the
+    label's logit, which only its owner holds, summed over ``model``.  Every
+    rank backpropagates the same loss, so both sums have the identity
+    backward (``tp_exit``).  Labels are clipped into ``vocab_padded``, whose
+    padded columns count as the reference counts them."""
+    z = logits.float()
+    rows = z.shape[-1]
+    lo = tp_rank() * rows
+    safe = torch.clamp(labels.long(), 0, rows * tp_size() - 1)
+    zmax = pmax(z.detach().amax(dim=-1), ("model",))
+    sumexp = tp_exit(torch.exp(z - zmax[..., None]).sum(dim=-1))
+    local = safe - lo
+    own = (local >= 0) & (local < rows)
+    zl = torch.gather(z, -1, local.clamp(0, rows - 1)[..., None])[..., 0] * own.float()
+    return tp_exit(zl) - (zmax + torch.log(sumexp))

@@ -10,7 +10,10 @@ products in another order), and the served tokens exactly; the training
 cases hold a train step's loss and gradients to the CPU port within stated
 tolerances, and crash-resume and the remat settings bit for bit.  The mesh
 cases run on a one-rank NCCL mesh, where every collective is the identity:
-each mesh result equals its no-mesh result bit for bit.
+each mesh result equals its no-mesh result bit for bit, the dense
+tensor-parallel path's too (its sums over the model group are NCCL calls).
+The last cases hold a model of bf16 parameters to the float32 model it was
+cast from.
 """
 import bisect
 import dataclasses
@@ -948,3 +951,65 @@ def test_cuda_compressed_step_bitwise(cuda, nccl_mesh):
     assert got["params_differ"] == [] and got["err_differ"] == []
     assert got["compressed"]["loss"] == got["plain"]["loss"]
     assert got["compressed"]["grad_norm"] == got["plain"]["grad_norm"]
+
+
+# ---------------------------------------------------------------------------
+# dense tensor parallelism on one rank, and bf16 parameters
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "arctic-480b", "falcon-mamba-7b",
+                                  "hymba-1.5b"])
+def test_cuda_tp_serving_bitwise_on_one_rank(cuda, nccl_mesh, arch):
+    """A prefill and 4 decode steps under the one-rank NCCL mesh and without:
+    bit for bit, the tensor-parallel path (each rank's heads, mamba channels
+    and vocabulary rows, here all of them) summing over the model group
+    with NCCL all-reduces."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import LMModel
+
+    r = ARCHS[arch].reduced()
+    model = LMModel(r, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(0, r.vocab, (4, 24)).astype(
+        np.int32)).to(cuda)
+    group, real, calls = nccl_mesh.get_group("model"), dist.all_reduce, []
+
+    def counted(t, *a, **kw):
+        calls.append(kw.get("group") is group)
+        return real(t, *a, **kw)
+
+    dist.all_reduce = counted
+    try:
+        assert serve_mesh_vs_plain(model, nccl_mesh, tokens, 4) == []
+    finally:
+        dist.all_reduce = real
+    assert sum(calls) > 0
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "hymba-1.5b", "arctic-480b"])
+def test_cuda_bf16_parameters_match_their_float32_model(cuda, arch):
+    """``LMModel(param_dtype=torch.bfloat16)`` with the float32 model's
+    weights cast: prefill and two greedy decode steps, the logits within
+    ``LM_CARD_TOL`` and the greedy tokens equal (both run the products on
+    the same bf16 weights)."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import LMModel
+
+    r = ARCHS[arch].reduced()
+    f32 = LMModel(r, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    bf = LMModel(r, device=cuda, param_dtype=torch.bfloat16, init=False)
+    with torch.no_grad():
+        for q, p in zip(bf.parameters(), f32.parameters()):
+            q.copy_(p)
+    assert all(p.dtype == torch.bfloat16 for p in bf.parameters())
+    toks = torch.from_numpy(np.random.default_rng(8).integers(0, r.vocab, (2, 16)).astype(
+        np.int32)).to(cuda)
+    (cf, lf), (cb, lb) = (m.prefill({"tokens": toks}, max_len=20) for m in (f32, bf))
+    for step in range(3):
+        assert torch.allclose(lb.float(), lf.float(), rtol=LM_CARD_TOL, atol=LM_CARD_TOL)
+        tf, tb = (torch.argmax(x[:, : r.vocab], -1).to(torch.int32) for x in (lf, lb))
+        assert torch.equal(tf, tb), step
+        if step < 2:
+            cf, lf = f32.decode_step(cf, tf, 16 + step)
+            cb, lb = bf.decode_step(cb, tb, 16 + step)

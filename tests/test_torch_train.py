@@ -322,9 +322,29 @@ def test_reduced_train_step(arch):
 
 
 def test_train_step_refuses_a_bf16_accumulator():
-    m = LMModel(treg.ARCHS["deepseek-7b"].reduced(), device="cpu")
-    with pytest.raises(ValueError, match="grad_dtype"):
-        tsteps.make_train_step(m, topt.AdamWConfig(), accum=2, grad_dtype=torch.bfloat16)
+    """A bf16 accumulator on float32 parameters, once refused, now sums the
+    microbatches' gradients in bf16 as the reference's does (op by op): the
+    loss, the grad norm of the bf16 sum and every parameter as in
+    ``test_train_step_matches_reference``."""
+    rm, params, m = _deepseek()
+    toks, labels = _lm_batch(m.cfg, np.random.default_rng(0), 4, 16)
+    rcfg, tcfg = ropt.AdamWConfig(state_dtype=jnp.float32), topt.AdamWConfig(
+        state_dtype=torch.float32)
+    with jax.disable_jit():
+        rp, _, rmet = rsteps.make_train_step(rm, rcfg, accum=2, grad_dtype=jnp.bfloat16)(
+            params, ropt.init_state(params, rcfg),
+            {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+    _, tmet = tsteps.make_train_step(m, tcfg, accum=2, grad_dtype=torch.bfloat16)(
+        topt.init_state(m.param_tree(), tcfg),
+        {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)})
+    assert float(tmet["loss"]) == pytest.approx(float(rmet["loss"]), abs=1e-6)
+    assert float(tmet["grad_norm"]) == pytest.approx(float(rmet["grad_norm"]), rel=1e-3)
+    assert all(p.grad.dtype == torch.float32 for p in m.parameters())
+    lr = float(rmet["lr"])
+    want = _flat(rp)
+    for name, p in _flat(m.param_tree()).items():
+        np.testing.assert_allclose(_np(p), _np(want[name]), rtol=0, atol=2.02 * lr,
+                                   err_msg=name)
 
 
 # ---------------------------------------------------------------------------
