@@ -96,7 +96,13 @@ checks that each path went through its kernels (launch counts set to 0
 before the path and read after it), that the card-built and CPU-built pools
 are equal and that the card's writes equal the CPU's, and that every lookup
 and every scan window answers a host-side oracle; then it times each kernel
-(CUDA events around 50 launches captured in one CUDA graph).
+(CUDA events around 50 launches captured in one CUDA graph).  Phase probe
+counts the main batch's queries that end at a compact leaf, the live slots
+their probes scan and the false 16-bit matches they meet (K4's bound counts
+those reads), holds K3 to its plain version on tiles past one pass of 16
+slots and on one 4 bytes past a 16-byte boundary, and K4 on an index whose
+compact leaves hold equal codes; phase times reads K3's and K4's
+registers and the blocks an SM holds from the card's runtime.
 It exits non-zero on any failure, and when there is no CUDA device.
 
 ``--parent`` runs it on an older package (the parent tree of a
@@ -104,8 +110,8 @@ before/after run): the phases that package cannot pass are skipped, each
 with a line that says so: the compaction phase, the check that the
 GetCDF/locate kernels' float ops all flush subnormals, the K7 phase with
 non-finite tables, the kernel-versus-plain checks on the underflow rows,
-and the execute, service, snapshot, wide-row, distributed, lm, train,
-mesh and dryrun phases.  Without it every phase runs.
+and the probe, execute, service, snapshot, wide-row, distributed, lm,
+train, mesh and dryrun phases.  Without it every phase runs.
 
 Output: one line per phase, then a JSON line of per-kernel numbers, then
 the last line ``{"ok": true, "device": {...}}``.
@@ -135,6 +141,7 @@ N_SCAN_BATCHES = 16         # scan_batch and rank_batch batches per range pass
 WINDOW = 16                 # the reference's scan_window
 WRITE_BATCH = 1_024         # ops per put_batch / delete_batch
 N_SUBSET = 100_000          # keys of the cuda-vs-cpu structure check
+N_COLLIDE = 4_000           # stored keys of the index whose compact leaves hold equal codes
 SEED = 0
 DEVICE = "cuda"
 WIDE_W = 262_144            # phase wide: a row past a block's shared memory
@@ -263,6 +270,74 @@ def sass_float_ops(lib) -> dict:
     return dict(collections.Counter(re.findall(r"\b(F(?:MUL|ADD|FMA)(?:\.[A-Z0-9]+)*)\b", sass)))
 
 
+# K4's and K3's launch resources, read on the card: each kernel's source
+# compiled once more, with the flags its library has, beside one C entry
+# point that asks the CUDA runtime for the kernel's registers and static
+# shared memory and for the blocks an SM holds at the block size and stage
+# that the source's own launcher gives it (K4 at width W).
+OCCUPANCY = {
+    "fused_search": ("traverse", "fused_search_kernel<false>",
+                     "const lits::StageLaunch l = lits::stage_launch(k, 1, W, 1, 0);\n"
+                     "  if (l.err != cudaSuccess) return static_cast<int>(l.err);\n"
+                     "  *threads = l.rows;\n"
+                     "  *stage = static_cast<int>(l.bytes);"),
+    "cnode_probe": ("cnode_probe", "cnode_probe_kernel",
+                    "*threads = lits::kBlock;\n"
+                    "  *stage = 0;"),
+}
+OCCUPANCY_TU = """#include "{source}.cu"
+
+extern "C" int lits_occupancy(int W, int* regs, int* shared, int* threads, int* stage,
+                              int* blocks) {{
+  auto* k = {kernel};
+  {launch}
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *shared = static_cast<int>(a.sharedSizeBytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, *threads, *stage));
+}}
+"""
+
+
+def start_occupancy_builds() -> dict:
+    """One nvcc per entry of :data:`OCCUPANCY`, all started at once:
+    ``{name: (library, process)}``, the libraries under the build directory."""
+    from repro_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, (source, kernel, launch) in OCCUPANCY.items():
+        tu = _build.BUILD_DIR / f"occupancy_{source}.cu"
+        tu.write_text(OCCUPANCY_TU.format(source=source, kernel=kernel, launch=launch))
+        lib = tu.with_suffix(".so")
+        jobs[name] = (lib, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
+             str(tu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return jobs
+
+
+def occupancy(jobs: dict, W: int) -> dict:
+    """Per kernel of ``jobs``: registers a thread, static shared bytes,
+    threads a block, stage bytes and the blocks an SM holds, from the card."""
+    import ctypes
+
+    out = {}
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode:
+            fail(f"nvcc failed for {lib.stem}:\n{log}")
+        vals = [ctypes.c_int() for _ in range(5)]
+        err = ctypes.CDLL(str(lib)).lits_occupancy(ctypes.c_int(W), *map(ctypes.byref, vals))
+        if err:
+            fail(f"{lib.stem}: CUDA error {err}")
+        out[name] = dict(zip(("regs", "shared", "threads", "stage_bytes", "blocks_per_sm"),
+                             (v.value for v in vals)))
+    return out
+
+
 def max_abs_err(got, want) -> float:
     """Largest |got - want| over the finite outputs (a NaN or inf output must
     be one in both: ``_torch_cases.nan_equal``)."""
@@ -365,6 +440,18 @@ def kernel_ms(fn, reps: int) -> float:
     """Mean milliseconds of one call of ``fn``: ``reps`` calls captured in one
     CUDA graph, so that no host time falls between the launches."""
     return graph_ms([fn] * reps)[0] / reps
+
+
+def probe_tile_ms(dev) -> float:
+    """K3 on a random (BATCH, 16) tile (``tests/_torch_cases.py``'s
+    probe_tile, seeded 0): its time on inputs that do not depend on an
+    index, by :func:`kernel_ms`."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_cases import probe_tile
+    from repro_torch.kernels import cnode_probe
+
+    tile = [torch.from_numpy(a).to(dev) for a in probe_tile(np.random.default_rng(0), BATCH, 16)]
+    return kernel_ms(lambda: cnode_probe.cnode_probe_cuda(*tile), 50)
 
 
 def replay_args(calls, dev):
@@ -2976,6 +3063,7 @@ def main(parent: bool = False) -> int:
 
     # 2. build; the GetCDF/locate kernels' float ops must all flush subnormals
     t = time.time()
+    occupancy_jobs = start_occupancy_builds()
     _build.build_all()
     say(f"phase build: {len(_build.SOURCES)} libraries in {time.time() - t:.1f} s")
     if not parent:
@@ -3240,7 +3328,9 @@ def main(parent: bool = False) -> int:
     # 11. each kernel against its plain version at its path's shapes
     results, inputs = {}, {}
     got = traverse.fused_search_cuda(ti, qb, ql)
-    results["fused_search"] = (got, traverse.fused_search_plain(ti, qb, ql))
+    walk = {}  # the plain walk's terminal items (an older package's walk takes no trace)
+    results["fused_search"] = (got, traverse.fused_search_plain(
+        ti, qb, ql, **({} if parent else {"trace": walk})))
     inputs["fused_search"] = ((ti, qb, ql), traverse.fused_search_cuda,
                               traverse.fused_search_plain)
 
@@ -3278,6 +3368,48 @@ def main(parent: bool = False) -> int:
     results["cnode_probe"] = ((cnode_probe.cnode_probe_cuda(*args),),
                               (cnode_probe.cnode_probe_plain(*args),))
     inputs["cnode_probe"] = (args, cnode_probe.cnode_probe_cuda, cnode_probe.cnode_probe_plain)
+
+    # the compact leaves the main batch reaches: how often, how many live
+    # slots, how many false 16-bit matches (K4's probe reads, counted in its
+    # bound below); K3 past one pass of 16 slots and on a tile 4 bytes past
+    # a 16-byte boundary; K4 over an index whose compact leaves hold equal
+    # codes (tests/_torch_cases.py), checked only
+    probe = None
+    if not parent:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from _torch_cases import cnode_probe_stats, collision_keys, probe_tile
+
+        probe = cnode_probe_stats(ti, qb, ql, walk["item"], *results["fused_search"][1][:2])
+        say(f"phase probe: of the main batch's {B} queries {probe['at_cnode']} end at a compact "
+            f"leaf ({probe['at_cnode'] / B:.4f}); their probes scan {probe['live']} live slots "
+            f"({probe['live'] / max(probe['at_cnode'], 1):.2f} a query), meet {probe['met']} of "
+            f"{probe['matches']} 16-bit hash matches, {probe['false']} of them false")
+        for k, shift in ((16, 1), (17, 0), (33, 1), (64, 0)):  # own streams: `rng` stays as it was
+            tile = [torch.from_numpy(a).to(dev)
+                    for a in probe_tile(np.random.default_rng(SEED + 7 + k), B + 37, k)]
+            if shift:  # a contiguous tile 4 bytes past a 16-byte boundary: scalar loads
+                tile[0] = torch.cat([tile[0].new_zeros(1), tile[0].flatten()])[1:].view(B + 37, k)
+            results[f"cnode_probe, K = {k}{', shifted 4 bytes' if shift else ''}"] = (
+                (cnode_probe.cnode_probe_cuda(*tile),), (cnode_probe.cnode_probe_plain(*tile),))
+        ckeys, cabsent = collision_keys(SEED, N_COLLIDE)
+        cbuild = LITSBuilder(device=DEVICE)
+        cbuild.bulkload(StringSet.from_list(ckeys))
+        cti = freeze(cbuild)
+        cqb, cql = (torch.from_numpy(a).to(dev) for a in pad_queries(ckeys + cabsent, cti.width))
+        cwalk = {}
+        cwant = traverse.fused_search_plain(cti, cqb, cql, trace=cwalk)
+        cst = cnode_probe_stats(cti, cqb, cql, cwalk["item"], *cwant[:2])
+        behind = int((cst["q_false"][cwant[0][cst["at"]]] > 0).sum())
+        absent_m = cst["q_matches"][~cwant[0][cst["at"]]]
+        say(f"phase probe: collision index of {len(ckeys)} keys and {len(cabsent)} never stored: "
+            f"{behind} stored keys found behind a false match, {int((absent_m == 1).sum())} "
+            f"never-stored keys meet one hash match and {int((absent_m >= 2).sum())} several")
+        if not behind or not (absent_m == 1).any() or not (absent_m >= 2).any():
+            fail("the collision index does not exercise the probe's false matches")
+        results["fused_search, compact leaves with equal codes"] = (
+            traverse.fused_search_cuda(cti, cqb, cql), cwant)
+    else:
+        say("phase probe: skipped (--parent: the package predates the walk's trace)")
 
     # K2, K1 and K7 on rows whose prob underflows, and K4 over an index of
     # keys whose GetCDF underflows (tests/_torch_cases.py), checked only
@@ -3388,11 +3520,18 @@ def main(parent: bool = False) -> int:
     hit = results["fused_search"][0][0]
     nbytes = {
         # query rows + lengths, 3 outputs, one item word per level walked
-        # (at most the item pool once), key bytes + entry record of each hit
+        # (at most the item pool once), key bytes + entry record of each hit;
+        # the model nodes' HPT and node reads are not counted
         "fused_search": B * (W + 4) + 12 * B
         + 4 * min(int(levels.sum()), ti.items.shape[0])
         + int((ql[hit].long() + 8).sum()),
     }
+    if probe is not None:
+        # the probe: (cn_base, cn_cnt) of each compact leaf reached, its live
+        # codes, the ch_ent word of each hash match met and the entry record
+        # of each false one (a hit's is counted above)
+        nbytes["fused_search"] += (8 * probe["at_cnode"] + 4 * probe["live"]
+                                   + 4 * probe["met"] + 8 * probe["false"])
     active = (torch.minimum(ql.long(), start.long() + steps) - start.long()).clamp(0, steps)
     n_steps = int(active.sum())
     table_bytes = 2 * ti.cdf_tab.numel() * 4
@@ -3471,6 +3610,14 @@ def main(parent: bool = False) -> int:
         say("phase times: cnode_probe runs inline in every fused_search launch "
             f"({main_launches['fused_search']} on the main path); its own entry is "
             "launched only here, against its plain version")
+    # K4's and K3's registers, shared memory and blocks an SM holds, from the
+    # card (K4 at this width's stage); K3 on a random tile
+    for name, r in occupancy(occupancy_jobs, W).items():
+        next(row for row in rows if row["name"] == name)["resources"] = r
+        say(f"phase times: {name}: {r}")
+    tile_ms = probe_tile_ms(dev)
+    next(r for r in rows if r["name"] == "cnode_probe")["random_tile_ms"] = tile_ms
+    say(f"phase times: cnode_probe on a random ({B}, 16) tile {tile_ms:.4f} ms")
     one_row_ms = kernel_ms(lambda: hpt_cdf.hpt_cdf_cuda(*one_row), 50)
     next(r for r in rows if r["name"] == "hpt_cdf")["one_row_table_ms"] = one_row_ms
     say(f"phase times: hpt_cdf with a one-row table (every table read from L1) {one_row_ms:.4f} ms")
@@ -3563,7 +3710,7 @@ if __name__ == "__main__":
     ap.add_argument("--parent", action="store_true",
                     help="skip the phases an older package cannot pass: compaction, the "
                          "flush check of the float ops, K7's non-finite tables, the "
-                         "underflow rows, execute, the service, snapshots, wide rows, "
-                         "the distributed index, the LM serving path, LM training, "
-                         "the mesh and the dry-run")
+                         "underflow rows, the probe, execute, the service, snapshots, "
+                         "wide rows, the distributed index, the LM serving path, LM "
+                         "training, the mesh and the dry-run")
     sys.exit(main(ap.parse_args().parent))

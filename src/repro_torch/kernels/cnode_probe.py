@@ -3,9 +3,11 @@
 Replaces ``repro/kernels/cnode_probe.py::_probe_kernel``.  For each query
 row of a (B, K) tile of 16-bit h-pointer hashes, the first slot ``j`` with
 ``frm <= j < cnt`` whose hash equals the query hash, else -1.  The kernel
-is ``csrc/cnode_probe.cu``; the same ``__device__`` probe runs inside K4's
-compact-node resolve, which re-probes from ``idx + 1`` after a false
-16-bit match.
+is ``csrc/cnode_probe.cu``: a group of four lanes a row, one 16-byte load
+of four codes a lane, the lanes' matches met in one ballot.  K4's
+compact-node resolve runs the one-thread form of the probe
+(``lits::probe_first``): the match mask of a chunk of codes, then key
+compares on its set bits, lowest first.
 """
 from __future__ import annotations
 

@@ -8,9 +8,11 @@
 //   * the walk stops at the first terminal item or after max_iters steps,
 //     which gives the same item and level count as the reference's
 //     batch-wide loop;
-//   * ENTRY: exact string equality; CNODE: lits::probe (K3's probe) over the
-//     node's h-pointers, string equality on a hash match, probing again from
-//     idx + 1 after a false 16-bit match.
+//   * ENTRY: exact string equality; CNODE: lits::probe_first over the
+//     node's h-pointers: the loads of a chunk of 32 hash codes all in
+//     flight at once, a mask of the codes equal to the query's hash, then
+//     string equality on its set bits, lowest first, to the first equal
+//     key (a false 16-bit match costs one compare, not a new probe).
 //
 // The TPU kernel pinned every pool whole in VMEM.  The pools of a real index
 // are tens of MB, more than a block's 227 KB of shared memory, so on Hopper
@@ -139,16 +141,15 @@ fused_search_kernel(const LitsPools p, const uint8_t* __restrict__ q,
     const int cnt = __ldg(p.cn_cnt + cid);
     const int qh = lits::hash16_row(row, W, qlen);
     const int qext = lits::row_extent(row, S);
-    for (int j = lits::probe(p.ch_hash, base, p.n_ch, qh, cnt, 0, cnode_cap); j >= 0;
-         j = lits::probe(p.ch_hash, base, p.n_ch, qh, cnt, j + 1, cnode_cap)) {
-      const int cand = __ldg(p.ch_ent + lits::clamp_index(base + j, p.n_ch));
-      const long long ce = lits::clamp_index(cand, p.n_ent);
-      if (lits::eq_row_key<kEqChunks>(row, W, qlen, qext, p.key_bytes, p.n_key,
-                                      __ldg(p.ent_off + ce), __ldg(p.ent_len + ce))) {
-        f = 1;
-        e = cand;
-        break;
-      }
+    int cand = -1;  // the key test only reports: one that set f and e ran 4% slower (PERF.md)
+    if (lits::probe_first(p.ch_hash, base, p.n_ch, qh, cnt, 0, cnode_cap, [&](int j) {
+          cand = __ldg(p.ch_ent + lits::clamp_index(base + j, p.n_ch));
+          const long long ce = lits::clamp_index(cand, p.n_ent);
+          return lits::eq_row_key<kEqChunks>(row, W, qlen, qext, p.key_bytes, p.n_key,
+                                             __ldg(p.ent_off + ce), __ldg(p.ent_len + ce));
+        }) >= 0) {
+      f = 1;
+      e = cand;
     }
   }
   found[b] = f;

@@ -2,10 +2,11 @@
 
 Replaces ``repro/kernels/traverse.py::_fused_kernel``.  The kernel is
 ``csrc/traverse.cu``: one thread walks one query to its terminal item and
-resolves it, with K1's locate and K3's probe inline; it reads the HPT as
-one interleaved (cdf, prob) table (:func:`paired_table`).  The plain
-version is :func:`repro_torch.core.walk.walk_terminal` +
-``resolve_terminal``.  Both
+resolves it, with K1's locate and the one-thread form of K3's probe inline
+(``lits::probe_first``: a chunk's hash codes loaded at once, then key
+compares on the set bits of its match mask); it reads the HPT as one
+interleaved (cdf, prob) table (:func:`paired_table`).  The plain version is
+:func:`repro_torch.core.walk.walk_terminal` + ``resolve_terminal``.  Both
 return ``(found, eid, levels)``; the delta-buffer probe stays outside, as
 in the reference.
 """
@@ -97,8 +98,9 @@ def fused_search_cuda(ti, qbytes, qlens):
     return found != 0, eid, levels
 
 
-def fused_search_plain(ti, qbytes, qlens):
-    """The same walk in tensor ops (:mod:`repro_torch.core.walk`)."""
+def fused_search_plain(ti, qbytes, qlens, *, trace=None):
+    """The same walk in tensor ops (:mod:`repro_torch.core.walk`).  A
+    ``trace`` dict receives each query's terminal item as ``"item"``."""
     item, levels = walk_terminal(
         qbytes, qlens, ti.root_item,
         ti.items, ti.mn_slot_base, ti.mn_slot_cnt, ti.mn_prefix_off,
@@ -107,6 +109,8 @@ def fused_search_plain(ti, qbytes, qlens):
         ti.key_bytes, ti.cdf_tab, ti.prob_tab,
         width=ti.width, max_iters=ti.max_iters, cdf_steps=ti.cdf_steps,
     )
+    if trace is not None:
+        trace["item"] = item
     found, eid = resolve_terminal(
         qbytes, qlens, item,
         ti.cn_base, ti.cn_cnt, ti.ch_hash, ti.ch_ent,

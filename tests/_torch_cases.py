@@ -104,6 +104,85 @@ def scan_entries(ti, eids, valid, is_delta):
                                       vals.tolist())]
 
 
+def collision_keys(seed: int, n: int):
+    """At least ``n`` stored keys whose compact leaves hold equal 16-bit
+    h-pointer codes (``strings.key_hash16``), and never-stored keys that
+    collide with them.  The keys come in clusters of 5 to 10 behind a random
+    8-letter prefix, which the model nodes leave together in a compact
+    leaf.  A cluster holds two or three stored keys of one code (the later
+    ones behind a false match), a stored key whose code one never-stored
+    key shares, and stored keys of codes of their own; its never-stored
+    keys take the shared codes, so one collides with several stored keys
+    and one with one.  Returns ``(keys, absent)``, both sorted."""
+    from repro_torch.core.strings import key_hash16
+
+    rng = np.random.default_rng(seed)
+    keys, absent = set(), set()
+    while len(keys) < n:
+        tail = int(rng.integers(4, 9))
+        sfx = np.unique(rng.integers(0, 26 ** tail, 8192))  # distinct tails
+        cand = np.empty((len(sfx), 9 + tail), np.uint8)
+        cand[:, :8] = rng.integers(97, 123, 8)
+        cand[:, 8] = ord("/")
+        cand[:, 9:] = sfx[:, None] // 26 ** np.arange(tail - 1, -1, -1) % 26 + 97
+        codes = key_hash16(cand, np.full(len(cand), cand.shape[1]))
+        _, inverse, size = np.unique(codes, return_inverse=True, return_counts=True)
+        size = size[inverse]
+        several, one, own = (rng.permutation(np.flatnonzero(size == s) if s == 1 else
+                                             np.flatnonzero(size >= s)) for s in (3, 2, 1))
+        x = np.flatnonzero(codes == codes[several[0]])
+        y = np.flatnonzero(codes == codes[next(i for i in one if codes[i] != codes[x[0]])])
+        k = min(len(x) - 1, int(rng.integers(2, 4)))
+        stored = list(x[:k]) + [y[0]] + list(own[: int(rng.integers(2, 7))])
+        keys.update(cand[i].tobytes() for i in stored)
+        absent.update(cand[i].tobytes() for i in (x[k], y[1]))
+    return sorted(keys), sorted(absent - keys)
+
+
+def probe_tile(rng, B: int, K: int):
+    """K3's inputs ``(hashes, qhash, cnt, frm)``, int32: (B, K) codes, a
+    third of the rows drawn from four values (repeated matches); a query
+    code taken from its row for 60% of the rows; cnt from -2 to K + 3 and
+    frm from -2 to K + 1."""
+    h = rng.integers(0, 1 << 16, size=(B, K))
+    h[rng.random(B) < 1 / 3] %= 4
+    qh = np.where(rng.random(B) < 0.6, h[np.arange(B), rng.integers(0, K, B)],
+                  rng.integers(0, 1 << 16, B))
+    cnt = rng.integers(-2, K + 4, B)
+    frm = rng.integers(-2, K + 2, B)
+    return tuple(np.ascontiguousarray(a, np.int32) for a in (h, qh, cnt, frm))
+
+
+def cnode_probe_stats(ti, qbytes, qlens, item, found, eid) -> dict:
+    """What the queries that end at a compact leaf ask of its probe, from
+    the walk's terminal ``item`` and the lookup's ``(found, eid)``:
+    ``at_cnode`` such queries, ``live`` slots their probes scan (min(cnt,
+    cnode_cap) each), ``matches`` 16-bit hash matches among them, ``met``
+    the matches a walk meets up to its first equal key, ``false`` those of
+    them whose key differs; per query (rows ``at``) ``q_matches`` and
+    ``q_false``."""
+    import torch
+
+    from repro_torch.core.builder import TAG_CNODE
+    from repro_torch.core.walk import item_payload, item_tag
+    from repro_torch.kernels.strops import hash16
+
+    at = item_tag(item) == TAG_CNODE
+    cid = item_payload(item[at]).clamp(max=ti.cn_base.shape[0] - 1).long()
+    base, cnt = ti.cn_base[cid].long(), ti.cn_cnt[cid].long()
+    j = torch.arange(ti.cnode_cap, device=item.device)
+    live = j[None, :] < cnt[:, None]
+    sidx = (base[:, None] + j[None, :]).clamp(0, ti.ch_hash.shape[0] - 1)
+    hm = live & (ti.ch_hash[sidx] == hash16(qbytes[at], qlens[at])[:, None])
+    key = hm & found[at][:, None] & (ti.ch_ent[sidx] == eid[at][:, None])
+    first = torch.where(key.any(1), key.int().argmax(1), ti.cnode_cap)
+    met = hm & (j[None, :] <= first[:, None])
+    false = hm & (j[None, :] < first[:, None])
+    return {"at_cnode": int(at.sum()), "live": int(live.sum()), "matches": int(hm.sum()),
+            "met": int(met.sum()), "false": int(false.sum()), "at": at,
+            "q_matches": hm.sum(1), "q_false": false.sum(1)}
+
+
 # Batch sizes at which a group of G lanes per query can go wrong: one
 # query, part of a warp or block, one past, and a full batch.
 CDF_GROUP_BATCHES = (1, 7, 28, 31, 32, 33, 255, 256, 257, 65536)

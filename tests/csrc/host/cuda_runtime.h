@@ -1,6 +1,7 @@
 // Host stand-ins for the CUDA types and intrinsics that the port's
-// single-thread device functions use, so that words_check.cpp can compile
-// src/repro_torch/kernels/csrc/lits_words.cuh with a host C++ compiler.
+// single-thread device functions use, so that words_check.cpp and
+// probe_check.cpp can compile src/repro_torch/kernels/csrc/lits_words.cuh
+// and lits_walk.cuh with a host C++ compiler.
 // Warp-level intrinsics abort: the group functions are checked on the card.
 #pragma once
 #include <algorithm>
@@ -49,6 +50,7 @@ inline unsigned __byte_perm(unsigned a, unsigned b, unsigned s) {
 }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __float2int_rd(float x) { return static_cast<int>(std::floor(x)); }
 inline void __syncthreads() {}
 inline unsigned __ballot_sync(unsigned, bool) { std::abort(); }

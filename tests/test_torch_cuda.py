@@ -22,13 +22,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, LM_CARD_TOL, LM_GRAD_RTOL,
-                          WORD_BATCHES, WORD_WINDOW, compressed_vs_plain, edge_cdf_rows,
-                          lm_card_vs_cpu, lm_pair, lm_train_batch, lm_train_step_card_vs_cpu,
-                          mesh_train_pair, moe_block_mesh_vs_plain, nan_equal,
-                          nonfinite_tables, query_rows, remat_grads, saturation_cases,
-                          serve_mesh_vs_plain, short_orders, tie_cases, tie_table,
-                          train_crash_resume, trimmed, underflow_keys, underflow_table,
+from _torch_cases import (CDF_GROUP_BATCHES, CDF_TABLES, LM_CARD_TOL, LM_GRAD_RTOL, WORD_BATCHES,
+                          WORD_WINDOW, cnode_probe_stats, collision_keys, compressed_vs_plain,
+                          edge_cdf_rows, lm_card_vs_cpu, lm_pair, lm_train_batch,
+                          lm_train_step_card_vs_cpu, mesh_train_pair, moe_block_mesh_vs_plain,
+                          nan_equal, nonfinite_tables, probe_tile, query_rows, remat_grads,
+                          saturation_cases, serve_mesh_vs_plain, short_orders, tie_cases,
+                          tie_table, train_crash_resume, trimmed, underflow_keys, underflow_table,
                           wide_edge_case, word_edge_case, word_edge_indexes, word_rows)
 from repro_torch.core.strings import StringSet
 from repro_torch.core.builder import LITSBuilder, LITSConfig
@@ -163,16 +163,42 @@ def test_cuda_wrappers_reject_bad_input(cuda):
         hpt_cdf.hpt_cdf_cuda(qb.t().contiguous().t(), ql, st, ct, pt)
 
 
-def test_cuda_cnode_probe_matches_plain(cuda):
-    rng = np.random.default_rng(3)
-    B, K = 65536, 16
-    h = rng.integers(0, 1 << 16, size=(B, K)).astype(np.int32)
-    qh = np.where(rng.random(B) < 0.6, h[np.arange(B), rng.integers(0, K, B)],
-                  rng.integers(0, 1 << 16, B)).astype(np.int32)
-    cnt = rng.integers(0, K + 1, B).astype(np.int32)
-    frm = rng.integers(0, 3, B).astype(np.int32)
-    args = _dev(cuda, h, qh, cnt, frm)
-    assert torch.equal(cnode_probe.cnode_probe_cuda(*args), cnode_probe.cnode_probe_plain(*args))
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("B", [65536, 4133])
+@pytest.mark.parametrize("K", [1, 3, 4, 16, 17, 33, 64])
+def test_cuda_cnode_probe_matches_plain(cuda, K, B, shifted):
+    """K3 (a group of lanes a row, 16-byte loads where the codes are
+    aligned, passes of 16 slots past K = 16) equals its plain version: cnt
+    past K and <= 0, frm up to K + 1, B not a multiple of a block's 64 rows,
+    and a tile whose data pointer is 4 bytes past a 16-byte boundary."""
+    args = _dev(cuda, *probe_tile(np.random.default_rng(K * 7 + B), B, K))
+    if shifted:
+        args[0] = _shifted(args[0], 1)
+        assert args[0].is_contiguous() and args[0].data_ptr() % 16 == 4
+    got = cnode_probe.cnode_probe_cuda(*args)
+    want = cnode_probe.cnode_probe_plain(*args)
+    assert torch.equal(got, want)
+    assert bool((want >= 0).any()) and bool((want == -1).any())
+
+
+def test_cuda_collision_index_matches_plain(cuda):
+    """K4 on an index whose compact leaves hold equal 16-bit codes
+    (``collision_keys``): stored keys behind a false match, never-stored
+    keys colliding with one stored key and with several; found, eid and
+    levels equal the plain walk's."""
+    keys, absent = collision_keys(2, 3000)
+    bg = LITSBuilder(device="cuda")
+    bg.bulkload(StringSet.from_list(keys))
+    tg = freeze(bg)
+    qb, ql = _dev(cuda, *pad_queries(keys + absent, tg.width))
+    trace = {}
+    want = traverse.fused_search_plain(tg, qb, ql, trace=trace)
+    st = cnode_probe_stats(tg, qb, ql, trace["item"], *want[:2])
+    assert st["false"] > 0 and st["matches"] > st["met"]
+    got = traverse.fused_search_cuda(tg, qb, ql)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got[0][: len(keys)].all()) and not bool(got[0][len(keys):].any())
 
 
 def test_cuda_bulkload_and_walk_match_plain(cuda):
