@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels._build import resolve_device
+from repro_torch.spans import span
 
 from . import pmss as pmss_mod
 from .gpkl import gpkl
@@ -287,6 +288,10 @@ class LITSBuilder:
     def bulkload(
         self, keys: StringSet, values: np.ndarray | None = None, width: int | None = None
     ) -> None:
+        with span("lits.build.bulkload", keys=len(keys)):
+            self._bulkload(keys, values, width)
+
+    def _bulkload(self, keys: StringSet, values: np.ndarray | None, width: int | None) -> None:
         order = sort_order(keys)
         ss = keys.take(order)
         uniq = dedup_sorted(ss)
@@ -842,10 +847,11 @@ class LITSBuilder:
         The rest is covered by the previous bound, and deletes only shrink
         a subtree, so the maximum stays an upper bound, possibly a loose
         one: ``freeze`` takes the walk's iteration bound from it."""
-        for loc, depth in dirty.items():
-            b, t = self._subtree_heights(self._item_at(loc), depth)
-            hb["base"] = max(hb["base"], b)
-            hb["trie"] = max(hb["trie"], t)
+        with span("lits.build.folds", subtrees=len(dirty)):
+            for loc, depth in dirty.items():
+                b, t = self._subtree_heights(self._item_at(loc), depth)
+                hb["base"] = max(hb["base"], b)
+                hb["trie"] = max(hb["trie"], t)
         self._hb = hb
 
     # ------------------------------------------------------------------

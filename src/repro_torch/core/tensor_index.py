@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.kernels.ops import fused_rank, fused_scan, fused_search
 from repro_torch.kernels.strops import gather_bytes, hash32, str_eq, take
+from repro_torch.spans import span
 
 from .builder import LITSBuilder
 from .hpt import MAX_CDF_STEPS
@@ -129,11 +130,13 @@ def tensor_index_from_arrays(arrays: dict, static: dict, device) -> TensorIndex:
     float dtype that holds the values) and the static fields."""
     np_dtypes = {torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.float32,
                  torch.uint8: np.uint8, torch.bool: np.bool_}
-    fields = {
-        name: torch.from_numpy(np.array(arrays[name], dtype=np_dtypes[dt], order="C")).to(device)
-        for name, dt in DATA_FIELDS.items()
-    }
-    return TensorIndex(**fields, **{k: int(static[k]) for k in STATIC_FIELDS})
+    with span("lits.ti.upload"):
+        fields = {
+            name: torch.from_numpy(np.array(arrays[name], dtype=np_dtypes[dt],
+                                            order="C")).to(device)
+            for name, dt in DATA_FIELDS.items()
+        }
+        return TensorIndex(**fields, **{k: int(static[k]) for k in STATIC_FIELDS})
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +158,13 @@ def freeze(
     device=None,
 ) -> TensorIndex:
     """Lay the builder's pools out on ``device`` (default: the builder's)."""
+    with span("lits.ti.freeze"):
+        arrays, static = _layout(b, delta_capacity, delta_bytes, delta_probes, epoch)
+    return tensor_index_from_arrays(arrays, static, b.device if device is None else device)
+
+
+def _layout(b: LITSBuilder, delta_capacity: int, delta_bytes, delta_probes: int, epoch: int):
+    """The host arrays and static fields :func:`freeze` uploads."""
     heights = b.height_bound()
     n = max(b.ent_off.n, 1)
     ent_sorted = np.asarray(b.sorted_eids(), dtype=np.int32)
@@ -212,7 +222,7 @@ def freeze(
         delta_probes=delta_probes,
         cdf_steps=int(min(max(b.max_suffix_len, 1), MAX_CDF_STEPS)),
     )
-    return tensor_index_from_arrays(arrays, static, b.device if device is None else device)
+    return arrays, static
 
 
 def pad_queries(keys, width: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -224,13 +234,14 @@ def pad_queries(keys, width: int) -> Tuple[np.ndarray, np.ndarray]:
     stored key instead of matching a truncated alias.
     """
     B = len(keys)
-    qb = np.zeros((B, width), np.uint8)
-    ql = np.zeros(B, np.int32)
-    for i, k in enumerate(keys):
-        kb = np.frombuffer(k[:width], np.uint8)
-        qb[i, : kb.shape[0]] = kb
-        ql[i] = min(len(k), width + 1)
-    return qb, ql
+    with span("lits.ti.pad_queries", keys=B):
+        qb = np.zeros((B, width), np.uint8)
+        ql = np.zeros(B, np.int32)
+        for i, k in enumerate(keys):
+            kb = np.frombuffer(k[:width], np.uint8)
+            qb[i, : kb.shape[0]] = kb
+            ql[i] = min(len(k), width + 1)
+        return qb, ql
 
 
 # ---------------------------------------------------------------------------
@@ -240,19 +251,20 @@ def pad_queries(keys, width: int) -> Tuple[np.ndarray, np.ndarray]:
 def _delta_lookup(ti: TensorIndex, qbytes, qlens):
     """Probe the delta buffer: (found, delta_entry_id); ``delta_probes``
     open-addressing slots of ``dh_slot`` from the query's 32-bit hash."""
-    B = qbytes.shape[0]
-    qh = hash32(qbytes, qlens)
-    hcap = ti.dh_slot.shape[0]
-    found = torch.zeros(B, dtype=torch.bool, device=qbytes.device)
-    did = torch.full((B,), -1, dtype=torch.int32, device=qbytes.device)
-    for p in range(ti.delta_probes):
-        de = ti.dh_slot[(qh + p) & (hcap - 1)]
-        dei = de.clamp(min=0)
-        hm = (de >= 0) & (take(ti.de_hash, dei) == qh)
-        eq = hm & str_eq(qbytes, qlens, ti.db_bytes, take(ti.de_off, dei), take(ti.de_len, dei))
-        did = torch.where(eq & ~found, de, did)
-        found = found | eq
-    return found, did
+    with span("lits.ti.delta_probe"):
+        B = qbytes.shape[0]
+        qh = hash32(qbytes, qlens)
+        hcap = ti.dh_slot.shape[0]
+        found = torch.zeros(B, dtype=torch.bool, device=qbytes.device)
+        did = torch.full((B,), -1, dtype=torch.int32, device=qbytes.device)
+        for p in range(ti.delta_probes):
+            de = ti.dh_slot[(qh + p) & (hcap - 1)]
+            dei = de.clamp(min=0)
+            hm = (de >= 0) & (take(ti.de_hash, dei) == qh)
+            eq = hm & str_eq(qbytes, qlens, ti.db_bytes, take(ti.de_off, dei), take(ti.de_len, dei))
+            did = torch.where(eq & ~found, de, did)
+            found = found | eq
+        return found, did
 
 
 def base_search(ti: TensorIndex, qbytes, qlens):
@@ -276,9 +288,10 @@ def search_batch(ti: TensorIndex, qbytes, qlens):
 
 def lookup_values(ti: TensorIndex, eid, is_delta):
     """(lo, hi) int32 halves of each result's value (base or delta entry)."""
-    e = eid.clamp(min=0)
-    return (torch.where(is_delta, take(ti.de_val_lo, e), take(ti.ent_val_lo, e)),
-            torch.where(is_delta, take(ti.de_val_hi, e), take(ti.ent_val_hi, e)))
+    with span("lits.ti.lookup_values"):
+        e = eid.clamp(min=0)
+        return (torch.where(is_delta, take(ti.de_val_lo, e), take(ti.ent_val_lo, e)),
+                torch.where(is_delta, take(ti.de_val_hi, e), take(ti.ent_val_hi, e)))
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +407,11 @@ def _mutate_batch(ti: TensorIndex, kbytes, klens, val_lo, val_hi, is_del):
     was claimed: the same ``ds_order``, with device work wasted on batches
     that claim nothing (delete-only or update-only ones).
     """
+    with span("lits.ti.mutate", ops=kbytes.shape[0]):
+        return _mutate_ops(ti, kbytes, klens, val_lo, val_hi, is_del)
+
+
+def _mutate_ops(ti: TensorIndex, kbytes, klens, val_lo, val_hi, is_del):
     B, W = kbytes.shape
     dev = kbytes.device
     klens = klens.to(torch.int32)
@@ -529,26 +547,29 @@ def merge_delta(builder: LITSBuilder, ti: TensorIndex, *,
     The returned index, on ``ti``'s device, starts an empty delta buffer of
     the same sizing and carries ``epoch = ti.epoch + 1``.
     """
-    cnt, used, epoch = torch.stack(
-        [ti.de_count.long(), ti.db_used.long(), ti.epoch.long()]).cpu().tolist()
-    if sync_base_values:
-        n = min(builder.ent_val.n, ti.ent_val_lo.shape[0])
-        if n:
-            lo, hi = torch.stack([ti.ent_val_lo[:n], ti.ent_val_hi[:n]]).cpu().numpy()
-            builder.ent_val.data[:n] = ((hi.astype(np.int64) << 32)
-                                        | lo.view(np.uint32).astype(np.int64))
+    with span("lits.merge.copy"):
+        cnt, used, epoch = torch.stack(
+            [ti.de_count.long(), ti.db_used.long(), ti.epoch.long()]).cpu().tolist()
+        if sync_base_values:
+            n = min(builder.ent_val.n, ti.ent_val_lo.shape[0])
+            if n:
+                lo, hi = torch.stack([ti.ent_val_lo[:n], ti.ent_val_hi[:n]]).cpu().numpy()
+                builder.ent_val.data[:n] = ((hi.astype(np.int64) << 32)
+                                            | lo.view(np.uint32).astype(np.int64))
+        if cnt:
+            db = ti.db_bytes[: max(used, 1)].cpu().numpy()
+            offs, lens, vlo, vhi, tomb = torch.stack([
+                ti.de_off[:cnt], ti.de_len[:cnt], ti.de_val_lo[:cnt], ti.de_val_hi[:cnt],
+                ti.de_tomb[:cnt].int()]).cpu().numpy()
     if cnt:
-        db = ti.db_bytes[: max(used, 1)].cpu().numpy()
-        offs, lens, vlo, vhi, tomb = torch.stack([
-            ti.de_off[:cnt], ti.de_len[:cnt], ti.de_val_lo[:cnt], ti.de_val_hi[:cnt],
-            ti.de_tomb[:cnt].int()]).cpu().numpy()
-        keys = [db[o: o + n].tobytes() for o, n in zip(offs.tolist(), lens.tolist())]
-        vals = (vhi.astype(np.int64) << 32) | vlo.view(np.uint32).astype(np.int64)
         dead = tomb != 0
-        if dead.any():
-            builder.delete_many([k for k, d in zip(keys, dead) if d])
-        if not dead.all():
-            builder.insert_many([k for k, d in zip(keys, dead) if not d], vals[~dead])
+        with span("lits.merge.replay", keys=int(cnt - dead.sum()), tombstones=int(dead.sum())):
+            keys = [db[o: o + n].tobytes() for o, n in zip(offs.tolist(), lens.tolist())]
+            vals = (vhi.astype(np.int64) << 32) | vlo.view(np.uint32).astype(np.int64)
+            if dead.any():
+                builder.delete_many([k for k, d in zip(keys, dead) if d])
+            if not dead.all():
+                builder.insert_many([k for k, d in zip(keys, dead) if not d], vals[~dead])
     return freeze(builder, delta_capacity=ti.de_off.shape[0],
                   delta_bytes=ti.db_bytes.shape[0], delta_probes=ti.delta_probes,
                   epoch=epoch + 1, device=ti.device)

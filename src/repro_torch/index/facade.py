@@ -50,6 +50,7 @@ from repro_torch.core.tensor_index import (
     scan_batch, search_batch,
 )
 from repro_torch.kernels._build import resolve_device
+from repro_torch.spans import add, span
 
 from .snapshot import load_index, save_index
 
@@ -218,13 +219,14 @@ class StringIndexBase:
     def _map_get_results(gets, found, vals, width: int, results) -> None:
         """(found, values) arrays -> an OpResult per get, written into
         ``results`` at the get's position in its batch."""
-        for (i, req), f, v in zip(gets, found.tolist(), vals.tolist()):
-            if len(req.key) > width:
-                results[i] = _REJECTED_OVER_WIDTH
-            elif f:
-                results[i] = OpResult(Status.OK, value=v)
-            else:
-                results[i] = _NOT_FOUND
+        with span("lits.facade.plan"):
+            for (i, req), f, v in zip(gets, found.tolist(), vals.tolist()):
+                if len(req.key) > width:
+                    results[i] = _REJECTED_OVER_WIDTH
+                elif f:
+                    results[i] = OpResult(Status.OK, value=v)
+                else:
+                    results[i] = _NOT_FOUND
 
 
 class StringIndex(StringIndexBase):
@@ -262,17 +264,23 @@ class StringIndex(StringIndexBase):
                   config: Optional[IndexConfig] = None) -> "StringIndex":
         """Paper Sec. 3.1: sample -> HPT -> collision-driven build -> freeze."""
         cfg = config or IndexConfig()
-        builder = LITSBuilder(config=cfg.builder, device=cfg.device)
-        vals = (np.asarray(values, np.int64) if values is not None
-                else np.arange(len(keys), dtype=np.int64))
-        builder.bulkload(StringSet.from_list(list(keys)), vals, width=cfg.width)
-        return cls.from_builder(builder, cfg)
+        with span("lits.index.bulk_load", keys=len(keys)):
+            builder = LITSBuilder(config=cfg.builder, device=cfg.device)
+            vals = (np.asarray(values, np.int64) if values is not None
+                    else np.arange(len(keys), dtype=np.int64))
+            builder.bulkload(StringSet.from_list(list(keys)), vals, width=cfg.width)
+            return cls._frozen(builder, cfg)
 
     @classmethod
     def from_builder(cls, builder: LITSBuilder,
                      config: Optional[IndexConfig] = None) -> "StringIndex":
         """Freeze an already bulk-loaded builder onto ``config.device``."""
         cfg = config or IndexConfig()
+        with span("lits.index.bulk_load", keys=builder.n_keys):
+            return cls._frozen(builder, cfg)
+
+    @classmethod
+    def _frozen(cls, builder: LITSBuilder, cfg: IndexConfig) -> "StringIndex":
         ti = freeze(builder, delta_capacity=cfg.delta_capacity,
                     delta_bytes=cfg.delta_bytes, delta_probes=cfg.delta_probes,
                     device=resolve_device(cfg.device))
@@ -322,11 +330,14 @@ class StringIndex(StringIndexBase):
         return self._to_device(*pad_queries(list(keys), self.ti.width))
 
     def _to_device(self, *arrays):
-        return [torch.from_numpy(a).to(self.ti.device) for a in arrays]
+        with span("lits.facade.query_copy", bytes=sum(a.nbytes for a in arrays)):
+            return [torch.from_numpy(a).to(self.ti.device) for a in arrays]
 
     def _finish_write(self, a, b) -> Tuple[np.ndarray, np.ndarray]:
         """One device-to-host copy of two op masks and the delta state."""
-        host = torch.cat([a.long(), b.long(), self._delta_state()]).cpu().numpy()
+        with span("lits.facade.answer_copy"):
+            host = torch.cat([a.long(), b.long(), self._delta_state()]).cpu().numpy()
+            add("lits.facade.answer_copy.bytes", host.nbytes)
         B = a.shape[0]
         self._mirror(host[2 * B:])
         return host[:B] != 0, host[B: 2 * B] != 0
@@ -335,10 +346,13 @@ class StringIndex(StringIndexBase):
         """Point lookups: (found bool mask, int64 values; misses hold 0)."""
         if not keys:
             return np.zeros(0, bool), np.zeros(0, np.int64)
-        found, eid, isd = search_batch(self.ti, *self._queries(keys))
-        lo, hi = lookup_values(self.ti, eid, isd)
-        found, lo, hi = found.cpu().numpy(), lo.cpu().numpy(), hi.cpu().numpy()
-        return found, np.where(found, _join_values(lo, hi), 0)
+        with span("lits.facade.get_batch", ops=len(keys)):
+            found, eid, isd = search_batch(self.ti, *self._queries(keys))
+            lo, hi = lookup_values(self.ti, eid, isd)
+            with span("lits.facade.answer_copy"):
+                found, lo, hi = found.cpu().numpy(), lo.cpu().numpy(), hi.cpu().numpy()
+                add("lits.facade.answer_copy.bytes", found.nbytes + lo.nbytes + hi.nbytes)
+            return found, np.where(found, _join_values(lo, hi), 0)
 
     def put_batch(self, keys: Sequence[bytes],
                   values: Sequence[int]) -> Tuple[np.ndarray, np.ndarray, bool]:
@@ -414,48 +428,55 @@ class StringIndex(StringIndexBase):
         the writes.  Failures come back as :class:`Status` codes; only a
         request of an unknown type raises.
         """
+        with span("lits.facade.execute", ops=len(batch)):
+            return self._execute(batch)
+
+    def _execute(self, batch: Sequence[Request]) -> BatchResult:
         results: List[Optional[OpResult]] = [None] * len(batch)
         gets: List[Tuple[int, GetRequest]] = []
         puts: List[Tuple[int, PutRequest]] = []
         dels: List[Tuple[int, DeleteRequest]] = []
         scans: List[Tuple[int, ScanRequest]] = []
-        for i, req in enumerate(batch):
-            if isinstance(req, GetRequest):
-                gets.append((i, req))
-            elif isinstance(req, PutRequest):
-                puts.append((i, req))
-            elif isinstance(req, DeleteRequest):
-                dels.append((i, req))
-            elif isinstance(req, ScanRequest):
-                scans.append((i, req))
-            else:
-                raise TypeError(f"unknown request type: {type(req).__name__}")
+        with span("lits.facade.plan"):
+            for i, req in enumerate(batch):
+                if isinstance(req, GetRequest):
+                    gets.append((i, req))
+                elif isinstance(req, PutRequest):
+                    puts.append((i, req))
+                elif isinstance(req, DeleteRequest):
+                    dels.append((i, req))
+                elif isinstance(req, ScanRequest):
+                    scans.append((i, req))
+                else:
+                    raise TypeError(f"unknown request type: {type(req).__name__}")
 
         merged = False
         width = self.ti.width
         if puts:
             ins, upd, merged = self.put_batch([r.key for _, r in puts],
                                               [r.value for _, r in puts])
-            for (i, req), in_, up in zip(puts, ins.tolist(), upd.tolist()):
-                if len(req.key) > width:
-                    results[i] = _REJECTED_OVER_WIDTH
-                elif in_ or up:
-                    results[i] = _PUT_UPDATED if up else _PUT_OK
-                else:
-                    results[i] = _REJECTED_FULL
+            with span("lits.facade.plan"):
+                for (i, req), in_, up in zip(puts, ins.tolist(), upd.tolist()):
+                    if len(req.key) > width:
+                        results[i] = _REJECTED_OVER_WIDTH
+                    elif in_ or up:
+                        results[i] = _PUT_UPDATED if up else _PUT_OK
+                    else:
+                        results[i] = _REJECTED_FULL
 
         if dels:
             deleted, rejected, dmerged = self.delete_batch([r.key for _, r in dels])
             merged = merged or dmerged
-            for (i, req), d, rej in zip(dels, deleted.tolist(), rejected.tolist()):
-                if len(req.key) > width:
-                    results[i] = _REJECTED_OVER_WIDTH
-                elif d:
-                    results[i] = _DELETED
-                elif rej:
-                    results[i] = _REJECTED_FULL
-                else:
-                    results[i] = _NOT_FOUND
+            with span("lits.facade.plan"):
+                for (i, req), d, rej in zip(dels, deleted.tolist(), rejected.tolist()):
+                    if len(req.key) > width:
+                        results[i] = _REJECTED_OVER_WIDTH
+                    elif d:
+                        results[i] = _DELETED
+                    elif rej:
+                        results[i] = _REJECTED_FULL
+                    else:
+                        results[i] = _NOT_FOUND
 
         if gets:
             found, vals = self.get_batch([r.key for _, r in gets])
@@ -481,31 +502,36 @@ class StringIndex(StringIndexBase):
         to the host of the windows, their values and, with a live delta,
         the delta entries' key bytes, gathered on the device with every
         index clamped as the reference's gathers clip."""
-        ti = self.ti
-        eids, valid, isd = self.scan_batch([r.start for _, r in group], window)
-        vlo, vhi = lookup_values(ti, eids.clamp(min=0), isd)
-        fetch = [eids, valid, isd, vlo, vhi]
-        if self._delta_fill > 0.0:
-            e = eids.clamp(0, ti.de_off.shape[0] - 1).long()
-            didx = (ti.de_off[e].long()[..., None]
-                    + torch.arange(ti.width, device=ti.device)).clamp(max=ti.db_bytes.shape[0] - 1)
-            fetch += [ti.de_len[e], ti.db_bytes[didx]]
-        got = [t.cpu().numpy() for t in fetch]
-        eids, valid, isd, vlo, vhi = got[:5]
-        dlen, dbytes = got[5:] if len(got) > 5 else (None, None)
-        vals = _join_values(vlo, vhi)
-        for row, (i, _req) in enumerate(group):
-            entries = []
-            for col, (e, v, ok, d) in enumerate(zip(eids[row].tolist(), vals[row].tolist(),
-                                                    valid[row].tolist(), isd[row].tolist())):
-                if not ok:
-                    continue
-                if d:
-                    key = dbytes[row, col, : dlen[row, col]].tobytes()
-                else:
-                    key = pool[ent_off[e]: ent_off[e] + ent_len[e]].tobytes()
-                entries.append((key, v))
-            results[i] = OpResult(Status.OK, entries=tuple(entries))
+        with span("lits.facade.scan_group", scans=len(group)):
+            ti = self.ti
+            eids, valid, isd = self.scan_batch([r.start for _, r in group], window)
+            vlo, vhi = lookup_values(ti, eids.clamp(min=0), isd)
+            fetch = [eids, valid, isd, vlo, vhi]
+            if self._delta_fill > 0.0:
+                e = eids.clamp(0, ti.de_off.shape[0] - 1).long()
+                didx = (ti.de_off[e].long()[..., None] + torch.arange(
+                    ti.width, device=ti.device)).clamp(max=ti.db_bytes.shape[0] - 1)
+                fetch += [ti.de_len[e], ti.db_bytes[didx]]
+            with span("lits.facade.answer_copy"):
+                got = [t.cpu().numpy() for t in fetch]
+                add("lits.facade.answer_copy.bytes", sum(a.nbytes for a in got))
+            eids, valid, isd, vlo, vhi = got[:5]
+            dlen, dbytes = got[5:] if len(got) > 5 else (None, None)
+            vals = _join_values(vlo, vhi)
+            with span("lits.facade.scan_entries", entries=int(valid.sum())):
+                for row, (i, _req) in enumerate(group):
+                    entries = []
+                    for col, (e, v, ok, d) in enumerate(zip(
+                            eids[row].tolist(), vals[row].tolist(), valid[row].tolist(),
+                            isd[row].tolist())):
+                        if not ok:
+                            continue
+                        if d:
+                            key = dbytes[row, col, : dlen[row, col]].tobytes()
+                        else:
+                            key = pool[ent_off[e]: ent_off[e] + ent_len[e]].tobytes()
+                        entries.append((key, v))
+                    results[i] = OpResult(Status.OK, entries=tuple(entries))
 
     # -- compaction --------------------------------------------------------
 
@@ -513,13 +539,14 @@ class StringIndex(StringIndexBase):
         """Compaction: replay the delta buffer into the host builder,
         refreeze, swap.  Runs by itself from ``put_batch``/``delete_batch``
         at ``config.auto_merge_threshold``."""
-        ticket = self.begin_merge()
-        try:
-            new_ti = self.run_merge(ticket)
-        except BaseException:
-            self.abort_merge(ticket)
-            raise
-        self.commit_merge(ticket, new_ti)
+        with span("lits.index.merge"):
+            ticket = self.begin_merge()
+            try:
+                new_ti = self.run_merge(ticket)
+            except BaseException:
+                self.abort_merge(ticket)
+                raise
+            self.commit_merge(ticket, new_ti)
 
     def begin_merge(self) -> MergeTicket:
         """Open a merge epoch: keep the current index for the replay and
@@ -541,34 +568,35 @@ class StringIndex(StringIndexBase):
         """Swap the merged index in and replay the journal onto it in arrival
         order, each run of one kind as one batch padded to a power of two.
         Returns the number of ops replayed."""
-        journal, self._merge_journal = self._merge_journal or [], None
-        redrained = 0
-        for kind, qb, ql, lo, hi in _coalesce_journal(journal):
-            real = qb.shape[0]
-            redrained += real
-            qb, ql, lo, hi = _pad_batch_pow2(qb, ql, lo, hi)
-            for attempt in (0, 1):
-                if kind == "put":
-                    new_ti, ins, upd = insert_batch(new_ti, *self._to_device(qb, ql, lo, hi))
-                    clean = bool((ins | upd)[:real].all())
-                else:
-                    new_ti, _, rej = delete_batch(new_ti, *self._to_device(qb, ql))
-                    clean = not bool(rej[:real].any())
-                if clean:
-                    break
-                if attempt:
-                    # refused against an empty delta: the batch alone is larger
-                    # than the pool, and its ops were acknowledged
-                    raise RuntimeError(
-                        "re-drain rejected acknowledged ops even after a fold-down "
-                        "merge; delta pool too small for the journal batch")
-                # the fresh delta filled during the replay: fold it down, retry
-                new_ti = merge_delta(self._ensure_builder(), new_ti, sync_base_values=True)
-        self.ti = new_ti
-        self.merge_count += 1
-        self._host_pool = None
-        self._mirror(self._delta_state().cpu())
-        return redrained
+        with span("lits.merge.journal"):
+            journal, self._merge_journal = self._merge_journal or [], None
+            redrained = 0
+            for kind, qb, ql, lo, hi in _coalesce_journal(journal):
+                real = qb.shape[0]
+                redrained += real
+                qb, ql, lo, hi = _pad_batch_pow2(qb, ql, lo, hi)
+                for attempt in (0, 1):
+                    if kind == "put":
+                        new_ti, ins, upd = insert_batch(new_ti, *self._to_device(qb, ql, lo, hi))
+                        clean = bool((ins | upd)[:real].all())
+                    else:
+                        new_ti, _, rej = delete_batch(new_ti, *self._to_device(qb, ql))
+                        clean = not bool(rej[:real].any())
+                    if clean:
+                        break
+                    if attempt:
+                        # refused against an empty delta: the batch alone is larger
+                        # than the pool, and its ops were acknowledged
+                        raise RuntimeError(
+                            "re-drain rejected acknowledged ops even after a fold-down "
+                            "merge; delta pool too small for the journal batch")
+                    # the fresh delta filled during the replay: fold it down, retry
+                    new_ti = merge_delta(self._ensure_builder(), new_ti, sync_base_values=True)
+            self.ti = new_ti
+            self.merge_count += 1
+            self._host_pool = None
+            self._mirror(self._delta_state().cpu())
+            return redrained
 
     def abort_merge(self, ticket: MergeTicket) -> None:
         """Close a merge epoch without a swap; the journal is dropped."""
@@ -615,8 +643,9 @@ class StringIndex(StringIndexBase):
         """Host copies of the live index's key pool and entry table, kept
         until the next merge."""
         if self._host_pool is None:
-            self._host_pool = tuple(t.cpu().numpy() for t in (
-                self.ti.key_bytes, self.ti.ent_off, self.ti.ent_len))
+            with span("lits.facade.host_pool"):
+                self._host_pool = tuple(t.cpu().numpy() for t in (
+                    self.ti.key_bytes, self.ti.ent_off, self.ti.ent_len))
         return self._host_pool
 
     def _entry_key(self, eid: int) -> bytes:

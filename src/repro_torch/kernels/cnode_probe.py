@@ -15,6 +15,8 @@ import ctypes
 
 import torch
 
+from repro_torch.spans import span
+
 from . import _build
 
 
@@ -49,8 +51,9 @@ def cnode_probe_cuda(hashes, qhash, cnt, frm) -> torch.Tensor:
 def cnode_probe(hashes, qhash, cnt, frm=None) -> torch.Tensor:
     """First matching h-pointer slot per query (or -1): K3 for CUDA tensors,
     the plain version for CPU ones."""
-    if not hashes.is_cuda:
-        return cnode_probe_plain(hashes, qhash, cnt, frm)
-    B, dev = hashes.shape[0], hashes.device
-    return cnode_probe_cuda(hashes, qhash, cnt,
-                            _build.as_rows(0 if frm is None else frm, B, torch.int32, dev))
+    with span("lits.kernels.cnode_probe"):
+        if not hashes.is_cuda:
+            return cnode_probe_plain(hashes, qhash, cnt, frm)
+        B, dev = hashes.shape[0], hashes.device
+        return cnode_probe_cuda(hashes, qhash, cnt,
+                                _build.as_rows(0 if frm is None else frm, B, torch.int32, dev))

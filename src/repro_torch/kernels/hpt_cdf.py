@@ -41,6 +41,8 @@ import ctypes
 
 import torch
 
+from repro_torch.spans import span
+
 from . import _build
 from .strops import FNV_PRIME, U32
 
@@ -190,6 +192,7 @@ def hpt_cdf_cuda(qbytes, qlens, start, cdf_tab, prob_tab,
 
 VARIANTS = {"gather": (hpt_cdf_cuda, hpt_cdf_plain),
             "onehot": (hpt_cdf_onehot_cuda, hpt_cdf_onehot_plain)}
+SPANS = {"gather": "lits.kernels.hpt_cdf", "onehot": "lits.kernels.hpt_cdf_onehot"}
 
 
 def hpt_cdf(qbytes, qlens, start=0, *, cdf_tab, prob_tab, variant: str = "gather",
@@ -200,8 +203,9 @@ def hpt_cdf(qbytes, qlens, start=0, *, cdf_tab, prob_tab, variant: str = "gather
         raise ValueError(f"unknown GetCDF variant {variant!r}; expected one of {list(VARIANTS)}")
     kernel, plain = VARIANTS[variant]
     B = qbytes.shape[0]
-    if qbytes.is_cuda:
-        return kernel(qbytes, _build.as_rows(qlens, B, torch.int32, qbytes.device),
-                      _build.as_rows(start, B, torch.int32, qbytes.device),
-                      cdf_tab, prob_tab, max_steps)
-    return plain(qbytes, qlens, start, cdf_tab, prob_tab, max_steps)
+    with span(SPANS[variant]):
+        if qbytes.is_cuda:
+            return kernel(qbytes, _build.as_rows(qlens, B, torch.int32, qbytes.device),
+                          _build.as_rows(start, B, torch.int32, qbytes.device),
+                          cdf_tab, prob_tab, max_steps)
+        return plain(qbytes, qlens, start, cdf_tab, prob_tab, max_steps)

@@ -19,6 +19,8 @@ import ctypes
 
 import torch
 
+from repro_torch.spans import span
+
 from . import _build
 from .hpt_cdf import MAX_CDF_STEPS, flush_subnormal, hpt_cdf_plain
 
@@ -112,11 +114,12 @@ def hpt_locate(qbytes, qlens, start, alpha, beta, nslots, *, cdf_tab, prob_tab,
                max_steps: int = MAX_CDF_STEPS) -> torch.Tensor:
     """Slot positions: K1 for CUDA tensors, the plain version for CPU ones.
     Scalars broadcast over the batch."""
-    if not qbytes.is_cuda:
-        return hpt_locate_plain(qbytes, qlens, start, alpha, beta, nslots,
-                                cdf_tab, prob_tab, max_steps)
-    B, dev = qbytes.shape[0], qbytes.device
-    i32 = lambda v: _build.as_rows(v, B, torch.int32, dev)
-    f32 = lambda v: _build.as_rows(v, B, torch.float32, dev)
-    return hpt_locate_cuda(qbytes, i32(qlens), i32(start), f32(alpha), f32(beta),
-                           i32(nslots), cdf_tab, prob_tab, max_steps)
+    with span("lits.kernels.hpt_locate"):
+        if not qbytes.is_cuda:
+            return hpt_locate_plain(qbytes, qlens, start, alpha, beta, nslots,
+                                    cdf_tab, prob_tab, max_steps)
+        B, dev = qbytes.shape[0], qbytes.device
+        i32 = lambda v: _build.as_rows(v, B, torch.int32, dev)
+        f32 = lambda v: _build.as_rows(v, B, torch.float32, dev)
+        return hpt_locate_cuda(qbytes, i32(qlens), i32(start), f32(alpha), f32(beta),
+                               i32(nslots), cdf_tab, prob_tab, max_steps)

@@ -12,7 +12,8 @@ version.  Nothing falls back from one to the other.
 * :func:`fused_rank`   — K5, ordered rank (``csrc/rank.cu``)
 * :func:`fused_scan`   — K6, delta-aware range scan (``csrc/scan.cu``)
 
-:data:`LAUNCHES` counts the kernel launches of each wrapper.
+:data:`LAUNCHES` counts the kernel launches of each wrapper; each dispatcher
+is a span ``lits.kernels.<name>`` (:mod:`repro_torch.spans`) on either device.
 """
 from ._build import LAUNCHES, build_all, reset_launches
 from .cnode_probe import cnode_probe

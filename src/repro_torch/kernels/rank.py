@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.core.walk import rank_sorted
 
+from repro_torch.spans import span
+
 from . import _build
 
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -91,6 +93,7 @@ def fused_rank_plain(ti, qbytes, qlens, *, trace=None) -> torch.Tensor:
 def fused_rank(ti, qbytes, qlens) -> torch.Tensor:
     """(B,) int32 ranks into ``ti.ent_sorted``: K5 for CUDA tensors, the
     plain version for CPU ones."""
-    if qbytes.is_cuda:
-        return fused_rank_cuda(ti, qbytes, qlens.to(torch.int32).contiguous())
-    return fused_rank_plain(ti, qbytes, qlens)
+    with span("lits.kernels.rank"):
+        if qbytes.is_cuda:
+            return fused_rank_cuda(ti, qbytes, qlens.to(torch.int32).contiguous())
+        return fused_rank_plain(ti, qbytes, qlens)

@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.core.walk import scan_merged
 
+from repro_torch.spans import span
+
 from . import _build
 from .rank import check_order, check_queries, check_rank_iters, order_records
 
@@ -79,6 +81,8 @@ def fused_scan_plain(ti, qbytes, qlens, *, window: int, trace=None):
 def fused_scan(ti, qbytes, qlens, *, window: int):
     """``(eids, valid, is_delta)`` windows: K6 for CUDA tensors, the plain
     version for CPU ones."""
-    if qbytes.is_cuda:
-        return fused_scan_cuda(ti, qbytes, qlens.to(torch.int32).contiguous(), window=window)
-    return fused_scan_plain(ti, qbytes, qlens, window=window)
+    with span("lits.kernels.scan"):
+        if qbytes.is_cuda:
+            return fused_scan_cuda(ti, qbytes, qlens.to(torch.int32).contiguous(),
+                                   window=window)
+        return fused_scan_plain(ti, qbytes, qlens, window=window)

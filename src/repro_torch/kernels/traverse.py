@@ -18,6 +18,8 @@ import torch
 
 from repro_torch.core.walk import resolve_terminal, walk_terminal
 
+from repro_torch.spans import span
+
 from . import _build
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
@@ -123,6 +125,7 @@ def fused_search_plain(ti, qbytes, qlens, *, trace=None):
 def fused_search(ti, qbytes, qlens):
     """Whole-walk lookup over a TensorIndex: ``(found, eid, levels)``.  K4 for
     CUDA tensors, the plain version for CPU ones."""
-    if qbytes.is_cuda:
-        return fused_search_cuda(ti, qbytes, qlens.to(torch.int32).contiguous())
-    return fused_search_plain(ti, qbytes, qlens)
+    with span("lits.kernels.fused_search"):
+        if qbytes.is_cuda:
+            return fused_search_cuda(ti, qbytes, qlens.to(torch.int32).contiguous())
+        return fused_search_plain(ti, qbytes, qlens)
