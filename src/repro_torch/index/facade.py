@@ -37,10 +37,12 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from itertools import islice
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from numpy.lib.stride_tricks import sliding_window_view
 
 from repro_torch.core.builder import LITSBuilder, LITSConfig
 from repro_torch.core.hpt import uniform_hpt
@@ -488,8 +490,12 @@ class StringIndex(StringIndexBase):
                 w = self.config.scan_window if req.window is None else req.window
                 by_window.setdefault(w, []).append((i, req))
             pool, ent_off, ent_len = self._host_entries()
+            # every entry's key as a row of the width's bytes from its offset:
+            # freeze ends the pool in width + 1 zeros, so each such row lies
+            # inside it (an offset past that has no row: IndexError)
+            key_rows = sliding_window_view(pool, self.ti.width)
             for w, group in by_window.items():
-                self._scan_group(group, w, pool, ent_off, ent_len, results)
+                self._scan_group(group, w, key_rows, ent_off, ent_len, results)
 
         return BatchResult(
             results=results,  # type: ignore[arg-type]
@@ -497,11 +503,13 @@ class StringIndex(StringIndexBase):
             n_delete=len(dels), merged=merged, delta_fill=self._delta_fill,
         )
 
-    def _scan_group(self, group, window, pool, ent_off, ent_len, results) -> None:
+    def _scan_group(self, group, window, key_rows, ent_off, ent_len, results) -> None:
         """One scan group of ``execute``: one ``scan_batch``, then one copy
         to the host of the windows, their values and, with a live delta,
         the delta entries' key bytes, gathered on the device with every
-        index clamped as the reference's gathers clip."""
+        index clamped as the reference's gathers clip.  The answers are then
+        built from whole arrays: one fixed-width key row a valid entry, one
+        ``tobytes``, and each key a slice of it by its length."""
         with span("lits.facade.scan_group", scans=len(group)):
             ti = self.ti
             eids, valid, isd = self.scan_batch([r.start for _, r in group], window)
@@ -519,19 +527,27 @@ class StringIndex(StringIndexBase):
             dlen, dbytes = got[5:] if len(got) > 5 else (None, None)
             vals = _join_values(vlo, vhi)
             with span("lits.facade.scan_entries", entries=int(valid.sum())):
-                for row, (i, _req) in enumerate(group):
-                    entries = []
-                    for col, (e, v, ok, d) in enumerate(zip(
-                            eids[row].tolist(), vals[row].tolist(), valid[row].tolist(),
-                            isd[row].tolist())):
-                        if not ok:
-                            continue
-                        if d:
-                            key = dbytes[row, col, : dlen[row, col]].tobytes()
-                        else:
-                            key = pool[ent_off[e]: ent_off[e] + ent_len[e]].tobytes()
-                        entries.append((key, v))
-                    results[i] = OpResult(Status.OK, entries=tuple(entries))
+                # masked before any gather (an invalid slot's id may be -1 or
+                # clamped), in row-major order, which keeps each row's order
+                e, d = eids[valid], isd[valid]
+                # a delta entry's id indexes the delta's pools: it reads base
+                # entry 0 here, and the splice below replaces that row and length
+                eb = np.where(d, 0, e)
+                rows = key_rows[ent_off[eb]]
+                lens = ent_len[eb]
+                n_delta = int(d.sum())
+                add("lits.facade.scan_entries.delta", n_delta)
+                if n_delta:
+                    live = valid & isd
+                    rows[d] = dbytes[live]
+                    lens[d] = dlen[live]
+                # sliced by length, never through an `S` dtype: keys may end in NULs
+                buf = rows.tobytes()
+                keys = [buf[o: o + n] for o, n in zip(range(0, len(buf), ti.width),
+                                                      lens.tolist())]
+                pairs = zip(keys, vals[valid].tolist())
+                for (i, _req), n in zip(group, valid.sum(1).tolist()):
+                    results[i] = OpResult(Status.OK, entries=tuple(islice(pairs, n)))
 
     # -- compaction --------------------------------------------------------
 

@@ -181,6 +181,117 @@ def test_convenience_ops_and_64bit_values_equal_reference(rng):
     assert found.all() and (v == vals).all()
 
 
+def _scans(starts, windows=(None,)):
+    return [ScanRequest(s, w) for s in starts for w in windows]
+
+
+def _entries(got):
+    return [e for r in got.results if r.entries for e in r.entries]
+
+
+def _scan_nul_bytes(rng):
+    """Keys with embedded and trailing NULs, in the delta, then in the base."""
+    keys, vals = _corpus(rng, 300)
+    ri, ti = _pair(keys, vals, delta_capacity=256, auto_merge_threshold=None)
+    fresh = ([k + b"\x00" for k in keys[:60:4]] + [k + b"\x00\x00" for k in keys[:60:12]]
+             + [k[:1] + b"\x00" + k[1:] for k in keys[60:120:6]])
+    starts = keys[:120:5] + [k[:1] for k in keys[:120:10]]
+    got = [run_both(ri, ti, [PutRequest(k, 9000 + i) for i, k in enumerate(fresh)]
+                    + _scans(starts, (None, 12)))]
+    for r in (ri, ti):
+        r.merge()
+    got.append(run_both(ri, ti, _scans(starts, (None, 12))))
+    return got, lambda ks: (any(k.endswith(b"\x00") for k in ks)
+                            and any(b"\x00" in k.rstrip(b"\x00") for k in ks))
+
+
+def _scan_last_in_pool(rng):
+    """The entry stored last in the key pool, whose fixed-width row runs
+    into the pool's zero tail: after the bulk load, and after a merge
+    appended the delta's keys."""
+    keys, vals = _corpus(rng, 300)
+    ri, ti = _pair(keys, vals, delta_capacity=64, auto_merge_threshold=None)
+    got, lasts = [], []
+    for step in range(2):
+        if step:
+            run_both(ri, ti, [PutRequest(b"%s-%d" % (keys[i], i), i) for i in range(0, 200, 20)])
+            for r in (ri, ti):
+                r.merge()
+        off = ti.ti.ent_off.numpy()
+        last = ti._entry_key(int(off.argmax()))
+        assert int(off.max()) + len(last) == ti.ti.key_bytes.shape[0] - ti.width - 1
+        assert len(last) < ti.width
+        got.append(run_both(ri, ti, [ScanRequest(last, 1), ScanRequest(last),
+                                     ScanRequest(last[:-1], 3)]))
+        lasts.append(last)
+    return got, lambda ks: bool(set(lasts) & ks)
+
+
+def _scan_live_delta(rng):
+    """Unmerged inserts between base keys: rows that mix delta and base entries."""
+    keys, vals = _corpus(rng, 300)
+    ri, ti = _pair(keys, vals, delta_capacity=256, auto_merge_threshold=None, scan_window=10)
+    fresh = [k + b"m" for k in keys[10:200:7]]
+    got = run_both(ri, ti, [PutRequest(k, -1 - i) for i, k in enumerate(fresh)]
+                   + [PutRequest(keys[12], 5)] + _scans(keys[5:200:9], (None, 3)))
+    fresh = set(fresh)
+    return [got], lambda ks: bool(ks & fresh) and bool(ks - fresh)
+
+
+def _scan_tombstones(rng):
+    """Deleted base and delta keys inside the windows, and windows that run
+    past the last live key: rows that end in invalid slots."""
+    keys, vals = _corpus(rng, 200)
+    ri, ti = _pair(keys, vals, delta_capacity=256, auto_merge_threshold=None, scan_window=8)
+    run_both(ri, ti, [PutRequest(b"zz-%d" % i, i) for i in range(4)])
+    dead = keys[20:40:3] + keys[-6:] + [b"zz-1", b"zz-3"]
+    starts = keys[15:45:4] + keys[-12:] + [b"zz-"]
+    got = run_both(ri, ti, [DeleteRequest(k) for k in dead] + _scans(starts, (None, 20)))
+    _, valid, _ = ti.scan_batch(starts, 20)
+    assert not valid.all()
+    dead = set(dead)
+    return [got], lambda ks: not ks & dead and b"zz-2" in ks
+
+
+def _scan_windows(rng):
+    """Windows of 1, of the default and past the live key count: some rows
+    empty, one holding every live key."""
+    keys, vals = _corpus(rng, 120)
+    ri, ti = _pair(keys, vals, delta_capacity=64, auto_merge_threshold=None, scan_window=7)
+    n = len(keys) + 2
+    starts = [b"", keys[0], keys[len(keys) // 2], keys[-1], keys[-1] + b"~", b"~~~~"]
+    got = run_both(ri, ti, [PutRequest(b"mm-1", 1), PutRequest(b"mm-2", 2)]
+                   + _scans(starts, (1, None, n + 40)))
+    sizes = [len(r.entries) for r in got.results if r.entries is not None]
+    assert 0 in sizes and n in sizes and 1 in sizes and 7 in sizes
+    return [got], lambda ks: {b"mm-1", b"mm-2"} <= ks
+
+
+def _scan_empty_delta(rng):
+    """No delta entry: the group fetches no delta bytes."""
+    keys, vals = _corpus(rng, 300)
+    ri, ti = _pair(keys, vals)
+    assert ti.delta_fill == 0.0
+    got = run_both(ri, ti, _scans(keys[::11] + [b"", b"~"], (None, 5)))
+    assert ti.delta_fill == 0.0
+    return [got], lambda ks: set(keys[::11]) <= ks
+
+
+@pytest.mark.parametrize("case", [_scan_nul_bytes, _scan_last_in_pool, _scan_live_delta,
+                                  _scan_tombstones, _scan_windows, _scan_empty_delta],
+                         ids=lambda f: f.__name__[len("_scan_"):])
+def test_scan_answers_equal_reference(rng, case):
+    """``execute``'s scan answers, built from whole arrays a scan group,
+    against the reference's: equal bit for bit (``run_both``), each key a
+    ``bytes`` and each value a Python ``int``, and each case reaching what
+    it is about."""
+    got, reaches = case(rng)
+    for g in got:
+        ents = _entries(g)
+        assert ents and all(type(k) is bytes and type(v) is int for k, v in ents)
+        assert reaches({k for k, _ in ents})
+
+
 def test_unknown_request_type_raises():
     keys = [b"a", b"b", b"c"]
     ti = StringIndex.bulk_load(keys, None, IndexConfig(device="cpu"))

@@ -208,7 +208,8 @@ def test_spans_on_the_profiler_timeline():
 
 def test_an_execute_record_counts_the_batch_exactly():
     keys, idx = _index()
-    batch = _batch(keys, "count", n_put=7, n_scan=40)
+    # the last scan's window takes the batch's seven fresh (delta) keys and two base keys
+    batch = _batch(keys, "count", n_put=7, n_scan=40) + [ScanRequest(b"https://newcount", 9)]
     before = dict(_build.LAUNCHES)
     t0 = time.perf_counter()
     out = idx.execute(batch)
@@ -217,15 +218,19 @@ def test_an_execute_record_counts_the_batch_exactly():
     assert [r["name"] for r in recs] == ["lits.facade.execute"]
     rec = recs[0]
     c = rec["counts"]
-    entries = sum(len(r.entries) for r in out.results if r.entries is not None)
-    assert entries > 0
-    assert c["lits.facade.scan_entries.entries"] == entries
+    entries = [e for r in out.results if r.entries is not None for e in r.entries]
+    fresh = {r.key for r in batch if isinstance(r, PutRequest)}
+    delta = sum(k in fresh for k, _ in entries)
+    assert len(entries) > delta == 7 and not out.merged
+    assert c["lits.facade.scan_entries.entries"] == len(entries)
+    assert c["lits.facade.scan_entries.delta"] == delta
     assert c["lits.ti.mutate.ops"] == 7
     assert c["lits.facade.execute.ops"] == len(batch)
-    assert c["lits.facade.scan_group.scans"] == 40
-    assert c["lits.ti.pad_queries.keys"] == 7 + 40
+    assert c["lits.facade.scan_group.scans"] == 41
+    assert c["lits.ti.pad_queries.keys"] == 7 + 41
     windows = len({r.window for r in batch if isinstance(r, ScanRequest)})
     assert rec["spans"]["lits.facade.scan_group"][0] == windows
+    assert rec["spans"]["lits.facade.scan_entries"][0] == windows
     assert rec["spans"]["lits.kernels.scan"][0] == windows
     assert rec["spans"]["lits.kernels.fused_search"][0] == 1
     assert c["lits.facade.answer_copy.bytes"] > 0 and c["lits.facade.query_copy.bytes"] > 0
