@@ -24,6 +24,17 @@ positions never decrease, which float32 rounding of the CDF can break by an
 ulp; a later run then overwrites an earlier run's slot.  The lost key stays
 in the sorted order until a rebuild walks its subtree.
 
+``LITSConfig.exact_slots`` (default False) departs from the reference there:
+every run whose position lands in one slot goes into that slot's one child
+group, built over the runs' keys in key order, so no stored key becomes
+unreachable.  The pools keep their format and the kernels do not change;
+where no slot is shared the pools equal the default mode's.  A benchmark
+configuration sets it through ``index_config.builder`` (``{"exact_slots":
+true}``, which :class:`repro_torch.index.IndexConfig` turns into a
+:class:`LITSConfig`).  Either way the counter
+``lits.build.bulkload.shared_slot_keys`` counts the keys of the runs that
+share a slot, in the open call's record.
+
 A bulk walk copies its keys to the device once and computes each model
 node's slot positions for the whole batch in one call, when the walk first
 reaches that node: K1 runs once per distinct node visited.
@@ -45,7 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels._build import resolve_device
-from repro_torch.spans import span
+from repro_torch.spans import add, span
 
 from . import pmss as pmss_mod
 from .gpkl import gpkl
@@ -68,6 +79,21 @@ PAYLOAD_MASK = (1 << PAYLOAD_BITS) - 1
 # RESIZE_GROW times its slots in keys, or fewer than RESIZE_SHRINK times them
 RESIZE_GROW = 2.0
 RESIZE_SHRINK = 0.2
+
+# counter of the keys of every run of a model node whose slot another run of
+# that node also takes: with exact_slots False the keys a build can lose,
+# with it True the keys it groups
+SHARED_SLOT_KEYS = "lits.build.bulkload.shared_slot_keys"
+
+
+def _shared_runs(run_pos: np.ndarray) -> Optional[np.ndarray]:
+    """Per run of a model node, whether another run takes its slot; None
+    where no slot is shared (always so where the positions never decrease)."""
+    if (np.diff(run_pos) > 0).all():
+        return None
+    _, inv, cnt = np.unique(run_pos, return_inverse=True, return_counts=True)
+    shared = cnt[inv] > 1
+    return shared if shared.any() else None
 
 
 def make_item(tag: int, payload: int = 0) -> int:
@@ -135,6 +161,10 @@ class LITSConfig:
     sample_frac: float = 0.01
     min_sample: int = 2048
     min_width: int = 16
+    # True: every run of keys whose model position lands in one slot goes
+    # into that slot's one child group, so that no stored key becomes
+    # unreachable; False: the reference's placement (a later run overwrites)
+    exact_slots: bool = False
 
 
 class LITSBuilder:
@@ -289,6 +319,7 @@ class LITSBuilder:
         self, keys: StringSet, values: np.ndarray | None = None, width: int | None = None
     ) -> None:
         with span("lits.build.bulkload", keys=len(keys)):
+            add(SHARED_SLOT_KEYS, 0)    # in the record even where no slot is shared
             self._bulkload(keys, values, width)
 
     def _bulkload(self, keys: StringSet, values: np.ndarray | None, width: int | None) -> None:
@@ -377,15 +408,27 @@ class LITSBuilder:
         cut = np.flatnonzero(np.diff(pos)) + 1
         starts = np.concatenate([[0], cut])
         ends = np.concatenate([cut, [n]])
-        for s, e in zip(starts, ends):
+        shared = _shared_runs(pos[starts])
+        if shared is not None:
+            add(SHARED_SLOT_KEYS, int((ends - starts)[shared].sum()))
+        grouped = self.cfg.exact_slots and shared is not None
+        for r, (s, e) in enumerate(zip(starts, ends)):
             p = int(pos[s])
-            sub = eids[s:e]
-            if e - s == 1:
+            rows = slice(s, e)
+            if grouped and shared[r]:
+                # exact mode: the slot's first run builds one group of every
+                # run that lands there, in key order; the later runs are in it
+                rows = np.flatnonzero(pos == p)
+                if rows[0] != s:
+                    continue
+            sub = eids[rows]
+            k = len(sub)
+            if k == 1:
                 self.items.data[base + p] = make_item(TAG_ENTRY, int(sub[0]))
-            elif (e - s) > self.cfg.heavy_slot_frac * n or (e - s) == n:
-                self.items.data[base + p] = self._build_trie(sub, bytes_mat[s:e], lens[s:e])
+            elif k > self.cfg.heavy_slot_frac * n or k == n:
+                self.items.data[base + p] = self._build_trie(sub, bytes_mat[rows], lens[rows])
             else:
-                self.items.data[base + p] = self._build_group(sub, bytes_mat[s:e], lens[s:e])
+                self.items.data[base + p] = self._build_group(sub, bytes_mat[rows], lens[rows])
         return make_item(TAG_MNODE, nid)
 
     def _build_cnode(self, eids: np.ndarray, bytes_mat: np.ndarray, lens: np.ndarray) -> int:
@@ -624,7 +667,15 @@ class LITSBuilder:
 
     def _rebuild_at(self, loc, item: int) -> None:
         eids = np.array(list(self.iter_subtree(item)), np.int64)
+        if self.cfg.exact_slots:
+            eids = self._key_sorted(eids)
         self._set_item(loc, self._build_group(eids))
+
+    def _key_sorted(self, eids: np.ndarray) -> np.ndarray:
+        """``eids`` in key order.  With exact_slots a slot's group can hold
+        keys on both sides of a neighbouring slot's, so a walk of the
+        structure need not visit keys in order."""
+        return eids[sort_order(StringSet(*self.entry_matrix(eids)))]
 
     def _delete_walk(self, key: bytes):
         """Structural delete without the shrink-resize pass.  Returns
@@ -861,8 +912,8 @@ class LITSBuilder:
         """Live entry ids in key order (``iter_subtree(root)`` after a bulk
         load or a full walk), kept across mutations by the bulk ops."""
         if self._sorted_cache is None:
-            self._sorted_cache = np.fromiter(
-                self.iter_subtree(self.root_item), dtype=np.int64, count=-1)
+            eids = np.fromiter(self.iter_subtree(self.root_item), dtype=np.int64, count=-1)
+            self._sorted_cache = self._key_sorted(eids) if self.cfg.exact_slots else eids
         return self._sorted_cache
 
     def height_bound(self) -> dict:
@@ -899,7 +950,8 @@ class LITSBuilder:
     def scan(self, begin: bytes, count: int) -> List[Tuple[bytes, int]]:
         """Host range scan: first ``count`` entries with key >= begin."""
         out: List[Tuple[bytes, int]] = []
-        for eid in self.iter_subtree(self.root_item):
+        order = self.sorted_eids() if self.cfg.exact_slots else self.iter_subtree(self.root_item)
+        for eid in order:
             k = self.key_at(eid)
             if k >= begin:
                 out.append((k, int(self.ent_val.data[eid])))

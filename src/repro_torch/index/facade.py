@@ -38,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 from itertools import islice
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,8 +67,14 @@ class IndexConfig:
     delta_probes: int = 16               # open-addressing probe bound
     auto_merge_threshold: Optional[float] = 0.75  # None disables auto-compaction
     scan_window: int = 16                # default ScanRequest window
-    builder: Optional[LITSConfig] = None  # host build policy (cnode cap, HPT shape)
+    # host build policy (cnode cap, HPT shape, exact_slots): a LITSConfig, or
+    # a mapping of its fields (a configuration file's), made a LITSConfig here
+    builder: Optional[Union[LITSConfig, Mapping]] = None
     device: str = "cuda"                 # where the index lives and the kernels run
+
+    def __post_init__(self):
+        if isinstance(self.builder, Mapping):
+            object.__setattr__(self, "builder", LITSConfig(**self.builder))
 
 
 class Status(enum.IntEnum):
