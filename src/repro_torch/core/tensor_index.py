@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.kernels.ops import fused_rank, fused_scan, fused_search
 from repro_torch.kernels.strops import gather_bytes, hash32, str_eq, take
-from repro_torch.spans import span
+from repro_torch.spans import add, span
 
 from .builder import LITSBuilder
 from .hpt import MAX_CDF_STEPS
@@ -228,6 +228,11 @@ def _layout(b: LITSBuilder, delta_capacity: int, delta_bytes, delta_probes: int,
 def pad_queries(keys, width: int) -> Tuple[np.ndarray, np.ndarray]:
     """Host helper: list[bytes] -> zero-padded (B, width) uint8 + true lens.
 
+    The rows are a new, writeable, C-contiguous array, packed in one
+    conversion of the whole batch; keys that are not exactly ``bytes``
+    (bytearray, memoryview, np.bytes_) are copied to ``bytes`` first and
+    counted in ``lits.ti.pad_queries.converted``.
+
     Lengths are clipped to ``width + 1``: the ``width + 1`` value is an
     over-width SENTINEL, not a length.  No stored key can have it, so
     ``str_eq``'s length comparison makes an over-width query miss every
@@ -235,12 +240,20 @@ def pad_queries(keys, width: int) -> Tuple[np.ndarray, np.ndarray]:
     """
     B = len(keys)
     with span("lits.ti.pad_queries", keys=B):
-        qb = np.zeros((B, width), np.uint8)
-        ql = np.zeros(B, np.int32)
-        for i, k in enumerate(keys):
-            kb = np.frombuffer(k[:width], np.uint8)
-            qb[i, : kb.shape[0]] = kb
-            ql[i] = min(len(k), width + 1)
+        converted = 0
+        if not set(map(type, keys)) <= {bytes}:
+            # numpy reads a bytearray as ints; any other buffer (memoryview,
+            # np.bytes_) is copied to bytes first, and a str or int raises
+            converted = sum(type(k) is not bytes for k in keys)
+            keys = [k if type(k) is bytes else bytes(memoryview(k)) for k in keys]
+        add("lits.ti.pad_queries.converted", converted)
+        # one fixed-width conversion truncates and zero-pads every key
+        # (np.fromiter skips np.array's shape discovery; "S0" would mean
+        # unsized, so width 0 packs at 1 and keeps no column)
+        w = max(width, 1)
+        qb = np.fromiter(keys, f"S{w}", B).view(np.uint8).reshape(B, w)[:, :width]
+        ql = np.fromiter(map(len, keys), np.int32, B)
+        np.minimum(ql, width + 1, out=ql)
         return qb, ql
 
 

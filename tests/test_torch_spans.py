@@ -228,6 +228,7 @@ def test_an_execute_record_counts_the_batch_exactly():
     assert c["lits.facade.execute.ops"] == len(batch)
     assert c["lits.facade.scan_group.scans"] == 41
     assert c["lits.ti.pad_queries.keys"] == 7 + 41
+    assert c["lits.ti.pad_queries.converted"] == 0
     windows = len({r.window for r in batch if isinstance(r, ScanRequest)})
     assert rec["spans"]["lits.facade.scan_group"][0] == windows
     assert rec["spans"]["lits.facade.scan_entries"][0] == windows
@@ -237,6 +238,22 @@ def test_an_execute_record_counts_the_batch_exactly():
     assert rec["launches"] == {k: n - before[k] for k, n in _build.LAUNCHES.items()
                                if n != before[k]}
     _check_self_times(rec)
+
+
+def test_pad_queries_counts_the_keys_it_converts():
+    keys, idx = _index()
+    plain = keys[:40]
+    found, vals = idx.get_batch(plain)
+    c = _last("lits.facade.get_batch")["counts"]
+    assert c["lits.ti.pad_queries.keys"] == 40 and c["lits.ti.pad_queries.converted"] == 0
+    mixed = [k if i % 3 else (bytearray(k) if i % 2 else memoryview(k))
+             for i, k in enumerate(plain)] + [np.bytes_(keys[50])]
+    got, got_vals = idx.get_batch(mixed)
+    c = _last("lits.facade.get_batch")["counts"]
+    assert c["lits.ti.pad_queries.keys"] == 41
+    assert c["lits.ti.pad_queries.converted"] == sum(type(k) is not bytes for k in mixed) == 15
+    assert found.all() and got.all()
+    np.testing.assert_array_equal(got_vals[:40], vals)
 
 
 def test_a_merge_record_holds_the_replay_and_the_refreeze():
